@@ -1,0 +1,6 @@
+"""Repo-relative paths (gluefactory_tpu/settings.py)."""
+
+from pathlib import Path
+
+ROOT_PATH = Path(__file__).resolve().parent.parent
+WEIGHTS_PATH = ROOT_PATH / "weights"

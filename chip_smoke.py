@@ -5,7 +5,8 @@
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the CUDA attention kernels (csrc/attention.cu, one nvcc call);
+  2. build: the CUDA kernels (csrc/attention.cu and csrc/elementwise.cu, one
+     nvcc call each, in parallel);
   3. kernels: K1 (rotary self-attention) and K2 (masked attention) against
      their plain PyTorch versions on the card, in float32, float16 and
      bfloat16, then timed at the flagship shapes beside the plain version,
@@ -14,7 +15,17 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      committed lg_tpu_stage2 weights on 4 rendered 480x360 pairs of known
      homography; every LightGlue attention must go through the kernels
      (12 K1 and 12 K2 launches a pair), the plain path must agree, and the
-     homographies must be recovered.
+     homographies must be recovered;
+  5. probe: the kernel probe entry point (scripts/kernel_probe.py) in a
+     subprocess, both workers executed and ok; K3 (elementwise add) held
+     bit-exact against x + y, timed beside torch.add; K2 timed at the probe's
+     8x4x1024x64;
+  6. gradients: autograd through the kernels' Functions against autograd
+     through the plain versions at the flagship shape, float32 and bfloat16;
+  7. training: 5 steps of the stage-2 recipe at full width (batch 32,
+     320x320, 512 keypoints, 6 layers) on the kernel path and on the plain
+     path from the same weights, pool and seeds; losses, gradients and
+     launches gated (see check_training).
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Only torch and numpy are needed besides the repository.
@@ -26,6 +37,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 T0 = time.perf_counter()
 H100_F32_FLOPS = 67e12  # dense float32 outside the tensor cores (data sheet)
@@ -295,6 +307,244 @@ def check_kernels(device):
     return results
 
 
+# --- phase 5: the kernel probe entry point and K3 ------------------------------
+
+PROBE_TIMEOUT = 300  # seconds for the whole probe (its workers have their own)
+
+
+def check_probe(device):
+    """Run the probe entry point, hold K3 bit-exact against x + y, and time K3
+    and K2 at the probe's shapes. Returns (K3's JSON-ready dict, the probe's
+    verdict)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.ops import elementwise as E
+
+    root = Path(__file__).resolve().parent
+    out_path = root / "gluefactory_torch/_build/kernel_probe.json"
+    out_path.unlink(missing_ok=True)  # read only this run's verdict
+    proc = subprocess.run(
+        [sys.executable, "-m", "gluefactory_torch.scripts.kernel_probe", "--out", str(out_path),
+         "--timeout", "120"], capture_output=True, text=True, timeout=PROBE_TIMEOUT, cwd=root)
+    if not out_path.exists():
+        raise AssertionError(f"kernel probe wrote no verdict (rc {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    verdict = json.loads(out_path.read_text())
+    for which in ("tiny", "attention"):
+        rec = verdict.get(which, {})
+        log(f"  probe {which:9s}: {json.dumps(rec)[:300]}")
+        if rec.get("status") != "EXECUTED" or not rec.get("ok"):
+            raise AssertionError(f"kernel probe {which}: {rec} (rc {proc.returncode}, "
+                                 f"stderr {proc.stderr[-2000:]})")
+    if proc.returncode != 0:
+        raise AssertionError(f"kernel probe exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if verdict["tiny"]["launches"] != {"add": 1}:
+        raise AssertionError(f"probe tiny launches {verdict['tiny']['launches']}")
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    buf = torch.randn(2 * 65539 + 1, generator=gen, device=device)
+    cases = {"256x256": (buf[:65536].view(256, 256), buf[65536:131072].view(256, 256)),
+             "odd length 65539": (buf[:65539], buf[65539:131078]),
+             "unaligned by 4 B": (buf[1:65540], buf[65540:131079])}
+    for name, (x, y) in cases.items():
+        out = E.add_cuda(x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(out, E.add_plain(x, y)):
+            raise AssertionError(f"add {name}: differs from x + y")
+        log(f"  add {name}: bit-exact against x + y")
+    x, y = cases["256x256"]
+    ms = graph_ms(lambda: E.add_cuda(x, y))
+    plain_ms = graph_ms(lambda: E.add_plain(x, y))
+    library_ms = graph_ms(lambda: torch.add(x, y))
+    nbytes = 3 * x.numel() * 4
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, x.numel() / H100_F32_FLOPS * 1e3
+    log(f"  add f32 256x256: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+        f"torch.add {library_ms * 1e3:.2f} us, bound {max(t_bytes, t_ops) * 1e3:.3f} us "
+        f"({nbytes / 1e3:.0f} KB)")
+
+    # K2 at the probe's shape: the split-key design at N = 1024, batch 8
+    b, h, n, d = 8, 4, 1024, 64
+    q, k, v, mask = _attention_inputs(b, h, n, n, d, torch.float32, False, gen, device)
+    mask[1] = True  # the timing runs with no fully-masked item
+    k2_ms = graph_ms(lambda: A.attention_cuda(q, k, v, mask), reps=5)
+    k2_plain = graph_ms(lambda: A.attention_plain(q, k, v, mask), reps=5)
+    k2_lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :]), reps=5)
+    flops = 4 * b * h * n * n * d
+    log(f"  attention         f32 B,H,N,D={b},{h},{n},{d}: kernel {k2_ms * 1e3:.1f} us, "
+        f"plain {k2_plain * 1e3:.1f} us, SDPA {k2_lib * 1e3:.1f} us, bound "
+        f"{flops / H100_F32_FLOPS * 1e6:.1f} us ({flops / 1e9:.2f} GFLOP)")
+    k3 = {"name": "add", "route": "cuda", "source": "gluefactory_torch/csrc/elementwise.cu",
+          "replaces": "gluefactory_tpu/scripts/pallas_probe.py:35", "launches": 0,
+          "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+          else "operations", "library_ms": library_ms}
+    return k3, verdict
+
+
+# --- phase 6: gradients through the kernels -------------------------------------
+
+GRAD_TOLERANCES = {  # max |d_kernel - d_plain| <= atol + rtol * max |d_plain|, per tensor
+    "float32": (1e-5, 1e-4),  # the same f32 recompute, sums in another order
+    "bfloat16": (1e-2, 2e-2),  # the plain path rounds rotated q and k to bf16
+}
+
+
+def check_gradients(device):
+    """Autograd through both kernels' Functions against autograd through the
+    plain versions, same inputs and cotangent, at the flagship shape with a
+    key mask. Returns the largest float32 error of each kernel."""
+    import torch
+
+    from gluefactory_torch.ops import attention as A
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    b, h, n, d = 1, 4, 512, 64
+    worst = {"attention_rotary": 0.0, "attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = GRAD_TOLERANCES[str(dtype).split(".")[1]]
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+        q, k, v, g = (randn(b, h, n, d) for _ in range(4))
+        theta = torch.randn(b, n, d // 2, generator=gen, device=device) * 3
+        cos = theta.cos().repeat_interleave(2, -1).to(dtype)
+        sin = theta.sin().repeat_interleave(2, -1).to(dtype)
+        mask = torch.rand(b, n, generator=gen, device=device) > 0.15
+        cases = {"attention_rotary": (A.self_attention_rotary, (q, k, v, cos, sin)),
+                 "attention": (A.attention, (q, k, v))}
+        for name, (fn, inputs) in cases.items():
+            grads = {}
+            for impl in ("auto", "xla"):
+                leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+                fn(*leaves, kv_mask=mask, implementation=impl).backward(g)
+                grads[impl] = [t.grad for t in leaves]
+            torch.cuda.synchronize()
+            errs = []
+            for label, dk, dp in zip(("q", "k", "v", "cos", "sin"), grads["auto"], grads["xla"]):
+                err = float((dk.float() - dp.float()).abs().max())
+                scale = float(dp.float().abs().max())
+                if not (err <= atol + rtol * scale) or not bool(torch.isfinite(dk).all()):
+                    raise AssertionError(f"{name} {dtype}: d{label} max |err| {err:.3g} over "
+                                         f"atol {atol} + rtol {rtol} x {scale:.3g}")
+                errs.append(f"d{label} {err:.2g}")
+                if dtype == torch.float32:
+                    worst[name] = max(worst[name], err)
+            log(f"  {name:17s} {str(dtype):14s} B,H,N,D={b},{h},{n},{d} backward: "
+                f"max |err| {', '.join(errs)} (atol {atol}, rtol {rtol} of max |grad|) ok")
+    return worst
+
+
+# --- phase 7: stage-2 training ---------------------------------------------------
+
+TRAIN_STEPS = 5
+TRAIN_POOL = 64  # the recipe's 768 procedural images cut to 64: a pool only feeds draws
+TRAIN_GRAD_RTOL = 1e-2  # of each parameter's max |grad|; see check_training
+
+
+def check_training(device):
+    """The stage-2 recipe at its full widths (batch 32, 320x320, 512
+    keypoints, 6 layers, 256-d, 4 heads) from the committed lg_tpu_stage2
+    weights, 5 steps on the kernel path and on the plain path from the same
+    pool and seeds. Returns the attention launches of the kernel path.
+
+    Gates: step-0 losses within 1e-4 relative; step-0 LightGlue gradients
+    within TRAIN_GRAD_RTOL of each parameter's largest gradient (the kernels
+    differ from the plain path in the last bits, and a near-tie whose argmax
+    flips changes the target of one token in the confidence loss); losses
+    after 5 steps within 1e-3 relative; every loss and gradient norm finite,
+    no step skipped; 12 + 12 attention launches per step."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.datasets import get_dataset
+    from gluefactory_torch.datasets.homographies_ondevice import upload_pool
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import STAGE2_WEIGHTS, stage2_conf
+    from gluefactory_torch.train import Trainer
+
+    conf = stage2_conf()
+    conf["data"]["pool_size"] = TRAIN_POOL
+    dataset = get_dataset(conf["data"]["name"])(conf["data"])
+    t = time.perf_counter()
+    pool = upload_pool(dataset.build_pool("train"), device)
+    log(f"  pool of {TRAIN_POOL} procedural {conf['data']['source_size']} images on the "
+        f"card in {time.perf_counter() - t:.1f} s")
+    trainers = {}
+    for impl in ("auto", "xla"):
+        conf["model"]["matcher"]["attention"] = impl
+        trainers[impl] = Trainer(conf, device=device, weights=STAGE2_WEIGHTS, pool=pool)
+    n_params = sum(p.numel() for p in trainers["auto"].model.parameters())
+    n_train = sum(p.numel() for p in trainers["auto"].optimizer.params)
+    log(f"  two pipelines loaded from {STAGE2_WEIGHTS.name} (strict): {n_params} parameters, "
+        f"{n_train} trainable")
+    seeds = list(itertools.islice(dataset.get_data_loader("train"), TRAIN_STEPS))
+    history = {"auto": [], "xla": []}
+    times = {"auto": [], "xla": []}
+    peak = {"auto": 0, "xla": 0}
+    launches = {"attention_rotary": 0, "attention": 0}
+    for i, seed in enumerate(seeds):
+        for impl, trainer in trainers.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launches()
+            t = time.perf_counter()
+            scalars = trainer.step(seed)
+            torch.cuda.synchronize()
+            times[impl].append((time.perf_counter() - t) * 1e3)
+            peak[impl] = max(peak[impl], torch.cuda.max_memory_allocated())
+            history[impl].append(scalars)
+            if impl == "auto":
+                step_launches = dict(A.launches)
+                if step_launches != {"attention_rotary": 12, "attention": 12}:
+                    raise AssertionError(f"step {i}: kernel launches {step_launches}, "
+                                         "expected 12 and 12")
+                for key in launches:
+                    launches[key] += step_launches[key]
+            elif A.launches != {"attention_rotary": 0, "attention": 0}:
+                raise AssertionError(f"step {i}: the plain path launched {A.launches}")
+            bad = [k for k, v in scalars.items() if not np.isfinite(v)]
+            if bad or scalars["skipped"]:
+                raise AssertionError(f"step {i} {impl}: non-finite {bad}, skipped "
+                                     f"{scalars['skipped']}")
+        ka, kx = history["auto"][-1], history["xla"][-1]
+        log(f"  step {i} (seed {seed}): loss {ka['loss/total']:.6f} (plain path "
+            f"{kx['loss/total']:.6f}), grad_norm {ka['grad_norm']:.4f} ({kx['grad_norm']:.4f}), "
+            f"matcher {ka['grad_norm/matcher']:.4f}, extractor {ka['grad_norm/extractor']:.4f}, "
+            f"recall {ka['metric/match_recall']:.3f}, {times['auto'][-1]:.0f} ms "
+            f"(plain path {times['xla'][-1]:.0f} ms)")
+        if i == 0:
+            rel = abs(ka["loss/total"] - kx["loss/total"]) / abs(kx["loss/total"])
+            if rel > 1e-4:
+                raise AssertionError(f"step 0 losses differ by {rel:.3g} relative")
+            plain = dict(trainers["xla"].model.matcher.named_parameters())
+            errs = {}
+            for name, p in trainers["auto"].model.matcher.named_parameters():
+                gk, gp = p.grad, plain[name].grad
+                errs[name] = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+            worst = max(errs, key=errs.get)
+            log(f"  step 0: loss differs by {rel:.2g} relative; LightGlue gradients differ by "
+                f"{np.median(list(errs.values())):.2g} (median over {len(errs)} parameters), "
+                f"worst {errs[worst]:.2g} in {worst} (of its max |grad|)")
+            if errs[worst] > TRAIN_GRAD_RTOL:
+                raise AssertionError(f"step 0 gradient of {worst} differs by {errs[worst]:.3g}")
+    rel = abs(history["auto"][-1]["loss/total"] - history["xla"][-1]["loss/total"]) / abs(
+        history["xla"][-1]["loss/total"])
+    if rel > 1e-3:
+        raise AssertionError(f"losses after {TRAIN_STEPS} steps differ by {rel:.3g} relative")
+    log(f"  after {TRAIN_STEPS} steps: losses differ by {rel:.2g} relative; median step "
+        f"{np.median(times['auto'][1:]):.1f} ms on the kernel path, "
+        f"{np.median(times['xla'][1:]):.1f} ms on the plain path (steps 1-{TRAIN_STEPS - 1}); "
+        f"peak memory {peak['auto'] / 2**30:.2f} GiB and {peak['xla'] / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    return launches
+
+
 # --- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -308,6 +558,7 @@ def main() -> int:
 
     from gluefactory_torch.flagship import load_flagship, matched_keypoints
     from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.ops import elementwise as E
     from gluefactory_torch.ops import kernels
 
     # float32 means float32: no TF32 in the matmuls or the convolutions, and
@@ -327,13 +578,15 @@ def main() -> int:
 
     log("phase 2: build")
     t = time.perf_counter()
-    kernels.load(A.SOURCE)
-    log(f"  {A.SOURCE}: {time.perf_counter() - t:.1f} s "
-        f"(nvcc {kernels.build_seconds[A.SOURCE]:.1f} s)")
-    ptxas = kernels.library_path(A.SOURCE).with_suffix(".log").read_text()
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    kernels.build_all([A.SOURCE, E.SOURCE])  # one nvcc each, in parallel
+    for source in (A.SOURCE, E.SOURCE):
+        kernels.load(source)
+        log(f"  {source}: nvcc {kernels.build_seconds[source]:.1f} s")
+        ptxas = kernels.library_path(source).with_suffix(".log").read_text()
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
+    log(f"  built in {time.perf_counter() - t:.1f} s")
 
     log("phase 3: kernels against their plain versions")
     results = check_kernels(device)
@@ -395,8 +648,30 @@ def main() -> int:
     if not (med_matches > 200 and med_err < 1.5):
         raise AssertionError(f"flagship quality gate: {stats}")
 
+
+    log("phase 5: kernel probe entry point")
+    k3, verdict = check_probe(device)
+    results.append(k3)
+
+    log("phase 6: gradients through the kernels")
+    grad_errs = check_gradients(device)
+
+    log("phase 7: stage-2 training")
+    train_launches = check_training(device)
+
+    by_path = {
+        "attention_rotary": {"flagship": launches["attention_rotary"],
+                             "training": train_launches["attention_rotary"]},
+        "attention": {"flagship": launches["attention"],
+                      "probe": verdict["attention"]["launches"]["attention"],
+                      "training": train_launches["attention"]},
+        "add": {"probe": verdict["tiny"]["launches"]["add"]},
+    }
     for r in results:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(by_path[r["name"]].values())
+        r["launches_by_path"] = by_path[r["name"]]
+        if r["name"] in grad_errs:
+            r["max_abs_err_backward"] = grad_errs[r["name"]]
     log(f"done in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": results}), flush=True)
     print(smi, flush=True)

@@ -31,7 +31,7 @@ def flagship_conf(attention: str = "auto") -> dict:
             "refinement_mode": "com",
         },
         "matcher": {"name": "matchers.lightglue", "n_layers": 6, "filter_threshold": 0.1,
-                    "attention": attention},
+                    "save_layer_outputs": False, "attention": attention},
         "filter": {"name": "matchers.match_refiner", "window_sampling": True},
     }
 

@@ -85,3 +85,71 @@ def homography_corner_error(H_est: torch.Tensor, H_gt: torch.Tensor,
     ], dim=-2)
     diff = warp_points(corners, H_est) - warp_points(corners, H_gt)
     return torch.linalg.vector_norm(diff, dim=-1).mean(dim=-1)
+
+
+# --- random homographies for the on-device data engine -------------------------
+
+def _convex(quad: torch.Tensor) -> torch.Tensor:
+    """True where the (B, 4, 2) quad is strictly convex."""
+    d = torch.roll(quad, -1, dims=-2) - quad
+    d2 = torch.roll(d, -1, dims=-2)
+    cross = d[..., 0] * d2[..., 1] - d[..., 1] * d2[..., 0]
+    return (cross > 1e-4).all(dim=-1) | (cross < -1e-4).all(dim=-1)
+
+
+def homography_draws(generator: torch.Generator, batch: int) -> dict:
+    """The uniforms in [0, 1) that ``homography_from_draws`` turns into
+    ``batch`` homographies, drawn on the generator's device."""
+    def rand(*shape):
+        return torch.rand(*shape, generator=generator, device=generator.device)
+
+    return {"pert": rand(batch, 4, 2), "shrink": rand(batch, 4, 1),
+            "angle": rand(batch), "trans": rand(batch, 2)}
+
+
+def homography_from_draws(draws: dict, shape: tuple[int, int], patch_shape: tuple[int, int],
+                          difficulty: float = 0.7, translation: float = 0.3,
+                          max_angle: float = 45.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Random homographies from uniform draws (gluefactory_tpu/geometry/
+    homography.py:sample_homography_batch): each maps a quad of the source
+    image (w, h = ``shape``) onto a (pw, ph = ``patch_shape``) canvas. The
+    corners are perturbed most away from the center, shrunk, rotated by up to
+    ``max_angle`` degrees and translated within the remaining margin; a
+    non-convex draw falls back to half the perturbation, then to the square.
+    Returns (H (B, 3, 3) source -> canvas, quad (B, 4, 2) in source pixels)."""
+    w, h = shape
+    pw, ph = patch_shape
+    device = draws["pert"].device
+    base = torch.tensor([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]], device=device)
+    amp = 0.5 * difficulty
+    pert = (draws["pert"] * (2 * amp) - amp).clamp_min(-amp)
+    pert = pert * (base - 0.5).abs() * 2.0
+    shrink = draws["shrink"] * amp
+    quad = (0.5 + (base + pert - 0.5) * (1.0 - shrink)).clamp(0.0, 1.0)
+    half = 0.5 * (quad + base)
+    quad = torch.where(_convex(quad)[:, None, None], quad, half)
+    quad = torch.where(_convex(quad)[:, None, None], quad, base)
+    max_rad = torch.deg2rad(torch.tensor(float(max_angle), device=device))
+    ang = torch.maximum(-max_rad, draws["angle"] * (2 * max_rad) - max_rad)
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    rot = torch.stack([torch.stack([ca, -sa], -1), torch.stack([sa, ca], -1)], -2)
+    center = quad.mean(dim=-2, keepdim=True)
+    quad_r = torch.einsum("bij,bnj->bni", rot, quad - center) + center
+    ext = (quad_r - center).abs().amax(dim=(-2, -1), keepdim=True)
+    room = torch.minimum(center, 1.0 - center)
+    scale = torch.clamp_max(room.amin(dim=-1, keepdim=True) / ext.clamp_min(1e-6), 1.0)
+    quad_r = center + (quad_r - center) * scale
+    t_lo = -quad_r.amin(dim=-2)
+    t_hi = torch.maximum(1.0 - quad_r.amax(dim=-2), t_lo)
+    t = (t_lo + draws["trans"] * (t_hi - t_lo)) * translation
+    coords = (quad_r + t[:, None, :]) * torch.tensor([float(w), float(h)], device=device)
+    target = (base * torch.tensor([float(pw), float(ph)], device=device)).expand_as(coords)
+    return compute_homography(coords, target), coords
+
+
+def sample_homography_batch(generator: torch.Generator, batch: int, shape, patch_shape,
+                            **kwargs) -> tuple[torch.Tensor, torch.Tensor]:
+    """``batch`` random homographies drawn from ``generator`` (see
+    ``homography_from_draws`` for the arguments)."""
+    return homography_from_draws(homography_draws(generator, batch), shape, patch_shape,
+                                 **kwargs)

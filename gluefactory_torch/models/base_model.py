@@ -1,7 +1,10 @@
 """Model framework (gluefactory_tpu/models/base_model.py): a model is an
 ``nn.Module`` built from a nested conf dict merged over the ``default_conf``
 of its class and bases; ``model(data)`` maps a dict of batched tensors to a
-dict of predictions."""
+dict of predictions, and ``model.loss(pred, data)`` to (losses, metrics),
+dicts of (B,) tensors with the sum to minimise in ``losses["total"]``.
+``trainable: False`` in a model's conf freezes its parameters: the trainer
+leaves them out of the optimizer."""
 
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ class BaseModel(nn.Module):
     def _forward(self, data: dict) -> dict:
         raise NotImplementedError
 
+    def loss(self, pred: dict, data: dict) -> tuple[dict, dict]:
+        raise NotImplementedError
+
 
 def get_model(name: str) -> type[BaseModel]:
     """Resolve ``name`` under ``models``, ``models.extractors`` or
@@ -47,6 +53,7 @@ def make_submodel(conf: dict) -> BaseModel:
 
 
 def build_model(name: str, conf: dict | None = None,
-                device: str | torch.device = "cuda") -> BaseModel:
-    """Build a model in inference mode on ``device`` (CUDA unless asked)."""
-    return get_model(name)(conf).to(resolve_device(device)).eval()
+                device: str | torch.device = "cuda", train: bool = False) -> BaseModel:
+    """Build a model on ``device`` (CUDA unless asked), in inference mode
+    unless ``train``."""
+    return get_model(name)(conf).to(resolve_device(device)).train(train)

@@ -1,5 +1,5 @@
-"""LightGlue attention matcher (gluefactory_tpu/models/matchers/lightglue.py),
-inference with a fixed depth.
+"""LightGlue attention matcher (gluefactory_tpu/models/matchers/lightglue.py)
+with a fixed depth, and its deep-supervision training loss.
 
 Parameter names and the Wqkv layout follow the official PyTorch LightGlue
 (Wqkv unflattens as (heads, head_dim, 3)); the numerics follow the JAX
@@ -14,10 +14,13 @@ from typing import ClassVar
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.assignment import filter_matches, sigmoid_log_double_softmax
 from ...ops.attention import attention, self_attention_rotary
 from ..base_model import BaseModel
+from ..utils.losses import nll_loss_no_bins
+from ..utils.metrics import matcher_metrics
 
 
 def normalize_keypoints(kpts: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
@@ -121,11 +124,15 @@ class MatchAssignment(nn.Module):
 
 
 class TokenConfidence(nn.Module):
-    """Per-layer exit confidence; held for the weights, read by adaptive depth."""
+    """Per-layer confidence that a token's assignment is final; trained by the
+    loss, read by adaptive depth (not ported yet)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.token = nn.Sequential(nn.Linear(dim, 1), nn.Sigmoid())
+
+    def forward(self, desc0, desc1):
+        return self.token(desc0)[..., 0], self.token(desc1)[..., 0]
 
 
 class LightGlue(BaseModel):
@@ -140,6 +147,9 @@ class LightGlue(BaseModel):
         "filter_threshold": 0.1,
         "depth_confidence": -1,
         "width_confidence": -1,
+        "checkpointed": True,  # recompute each layer in the backward pass
+        "save_layer_outputs": True,  # per-layer descriptors for the loss
+        "loss": {"gamma": 1.0},  # weight gamma^(L-1-i) of layer i's NLL
     }
     required_data_keys: ClassVar[list] = [
         "keypoints0", "keypoints1", "descriptors0", "descriptors1"]
@@ -169,19 +179,67 @@ class LightGlue(BaseModel):
         desc1 = self.input_proj(data["descriptors1"])
         rot0 = self.posenc(normalize_keypoints(data["keypoints0"], size0))
         rot1 = self.posenc(normalize_keypoints(data["keypoints1"], size1))
+        layers0, layers1 = [], []
         for layer in self.transformers:
-            desc0, desc1 = layer(desc0, desc1, rot0, rot1, mask0, mask1)
+            if self.conf["checkpointed"] and torch.is_grad_enabled():
+                desc0, desc1 = checkpoint(layer, desc0, desc1, rot0, rot1, mask0, mask1,
+                                          use_reentrant=False)
+            else:
+                desc0, desc1 = layer(desc0, desc1, rot0, rot1, mask0, mask1)
+            layers0.append(desc0)
+            layers1.append(desc1)
         scores, z0, z1 = self.log_assignment[-1](desc0, desc1, mask0, mask1)
         pred = {"log_assignment": scores,
                 **filter_matches(scores, self.conf["filter_threshold"]),
                 "matchability0": torch.sigmoid(z0),
                 "matchability1": torch.sigmoid(z1)}
+        if self.conf["save_layer_outputs"]:
+            pred["desc_layers0"] = torch.stack(layers0)
+            pred["desc_layers1"] = torch.stack(layers1)
         # invalid slots are unmatched by construction
         if mask0 is not None:
             pred["matches0"] = pred["matches0"].masked_fill(~mask0, -1)
         if mask1 is not None:
             pred["matches1"] = pred["matches1"].masked_fill(~mask1, -1)
         return pred
+
+    def loss(self, pred: dict, data: dict):
+        """Deep supervision: the NLL of every layer's assignment head, weighted
+        by gamma^(L-1-i) and averaged, plus the token-confidence BCE on
+        detached descriptors (target: the layer's argmax agrees with the
+        final one's). Returns (losses, metrics), (B,) each."""
+        gt_m0, gt_m1 = data["gt_matches0"], data["gt_matches1"]
+        mask0, mask1 = data.get("keypoint_valid0"), data.get("keypoint_valid1")
+        n_layers, gamma = self.conf["n_layers"], self.conf["loss"]["gamma"]
+        final_scores = pred["log_assignment"]
+        losses = {}
+        total, sum_weight = 0.0, 0.0
+        conf_loss = torch.zeros(gt_m0.shape[0], device=gt_m0.device)
+        for i in range(n_layers):
+            desc0, desc1 = pred["desc_layers0"][i], pred["desc_layers1"][i]
+            scores, z0, z1 = self.log_assignment[i](desc0, desc1, mask0, mask1)
+            nll, nll_pos, nll_neg = nll_loss_no_bins(
+                torch.where(torch.isfinite(scores), scores, -1e9), z0, z1, gt_m0, gt_m1)
+            weight = 1.0 if i == n_layers - 1 else gamma ** (n_layers - 1 - i)
+            total = total + weight * nll
+            sum_weight += weight
+            if i == n_layers - 1:
+                losses.update(nll_pos=nll_pos, nll_neg=nll_neg, assignment_nll=nll)
+                continue
+            c0, c1 = self.token_confidence[i](desc0.detach(), desc1.detach())
+            correct0 = (scores.argmax(dim=2) == final_scores.argmax(dim=2)).float()
+            correct1 = (scores.argmax(dim=1) == final_scores.argmax(dim=1)).float()
+            for c, correct, mask in ((c0, correct0, mask0), (c1, correct1, mask1)):
+                bce = -(correct * torch.log(c + 1e-8)
+                        + (1 - correct) * torch.log(1 - c + 1e-8))
+                if mask is None:
+                    conf_loss = conf_loss + bce.sum(-1) / bce.shape[-1]
+                else:
+                    conf_loss = conf_loss + (torch.where(mask, bce, 0.0).sum(-1)
+                                             / mask.sum(-1).clamp_min(1))
+        losses["confidence"] = conf_loss / max(n_layers - 1, 1)
+        losses["total"] = total / sum_weight + losses["confidence"]
+        return losses, matcher_metrics(pred, data)
 
 
 __main_model__ = LightGlue

@@ -10,10 +10,17 @@ Each kernel has three parts here:
     inputs and launches the hand-written CUDA kernel of
     ``csrc/attention.cu`` on CUDA tensors, counting each launch in
     ``launches``. Given CPU tensors it runs the plain version instead;
+  - a ``torch.autograd.Function`` around each kernel (``AttentionFn``,
+    ``SelfAttentionRotaryFn``), the counterparts of the JAX package's
+    ``_attention_fused`` and ``_self_attention_rotary_fused``: the forward
+    launches the kernel and saves the inputs, the backward recomputes the
+    softmax in plain PyTorch (``attention_bwd``, ``self_attention_rotary_bwd``,
+    copies of ``_attention_bwd`` and ``_sar_bwd``) -- the JAX package's
+    backward is a jnp recompute too, not a Pallas kernel;
   - a dispatcher (``attention``, ``self_attention_rotary``) that the models
     call: ``implementation='xla'`` selects the plain version, ``'auto'`` and
-    ``'pallas'`` the kernel wrapper (the JAX package's names, so its configs
-    keep their meaning).
+    ``'pallas'`` the kernel through its Function (the JAX package's names, so
+    its configs keep their meaning).
 """
 
 from __future__ import annotations
@@ -38,30 +45,41 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v. q (B, H, Nq, D), k/v (B, H, Nk, D),
-    kv_mask (B, Nk) bool (True = keep). Fully-masked rows return zeros."""
-    dtype = q.dtype
-    q, k, v = q.float(), k.float(), v.float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+def _attention_probs(q: torch.Tensor, k: torch.Tensor,
+                     kv_mask: torch.Tensor | None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) over the keys, in float32, with the kernels'
+    mask rules: masked keys take no part in the max or the sum, the
+    denominator is clamped at 1e-30 (a fully-masked row is 0)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
     if kv_mask is not None:
         drop = ~kv_mask[:, None, None, :]
         s = s.masked_fill(drop, NEG_INF)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     if kv_mask is not None:
         e = e.masked_fill(drop, 0.0)
-    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(dtype)
+    return e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v. q (B, H, Nq, D), k/v (B, H, Nk, D),
+    kv_mask (B, Nk) bool (True = keep). Fully-masked rows return zeros."""
+    p = _attention_probs(q, k, kv_mask)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def rotate_pairs(x: torch.Tensor) -> torch.Tensor:
+    """interleave(-x2, x1) over the last dim: the P of x * cos + P(x) * sin
+    (``_P`` in the JAX package)."""
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    return torch.stack([-x2, x1], dim=-1).reshape(x.shape)
 
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotary embedding over the last dim, pairs convention
     x * cos + interleave(-x2, x1) * sin. x (B, H, N, D); cos/sin (B, N, D)."""
-    x1 = x[..., 0::2]
-    x2 = x[..., 1::2]
-    rot = torch.stack([-x2, x1], dim=-1).reshape(x.shape)
-    return x * cos[:, None] + rot * sin[:, None]
+    return x * cos[:, None] + rotate_pairs(x) * sin[:, None]
 
 
 def attention_rotary_plain(q: torch.Tensor, k_rotated: torch.Tensor, v: torch.Tensor,
@@ -103,7 +121,9 @@ def _check_inputs(q, k, v, kv_mask):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"no attention kernel for dtype {q.dtype}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the attention kernels have no backward pass yet")
+        raise NotImplementedError("the raw kernel wrappers have no backward pass: "
+                                  "call attention()/self_attention_rotary(), whose "
+                                  "autograd Functions launch the kernels")
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if d not in HEAD_DIMS:
@@ -168,6 +188,74 @@ def attention_rotary_cuda(q: torch.Tensor, k_rotated: torch.Tensor, v: torch.Ten
     return out
 
 
+# --- autograd --------------------------------------------------------------
+
+def attention_bwd(q, k, v, kv_mask, g):
+    """(dq, dk, dv) of ``attention_plain`` for the output cotangent ``g``,
+    recomputed from the inputs in float32 (JAX ``_attention_bwd``)."""
+    q, k, v, g = q.float(), k.float(), v.float(), g.float()
+    scale = q.shape[-1] ** -0.5
+    p = _attention_probs(q, k, kv_mask)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return dq, dk, dv
+
+
+def rotary_bwd_rotate(g, cos, sin):
+    """Adjoint of ``apply_rotary`` in x: J = diag(cos) + diag(sin) P with
+    P^T = -P, so J^T g = apply_rotary(g, cos, -sin) (JAX ``_rotary_bwd_rotate``)."""
+    return apply_rotary(g, cos, -sin)
+
+
+def self_attention_rotary_bwd(q, k, v, cos, sin, kv_mask, g):
+    """(dq, dk, dv, dcos, dsin) of rotary self-attention with q and k
+    unrotated (JAX ``_sar_bwd``). dcos/dsin (B, N, D) are summed over heads:
+    they feed the learnable Fourier posenc that makes cos and sin."""
+    q, k, cos, sin = q.float(), k.float(), cos.float(), sin.float()
+    qr, kr = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+    dqr, dkr, dv = attention_bwd(qr, kr, v, kv_mask, g)
+    dq = rotary_bwd_rotate(dqr, cos, sin)
+    dk = rotary_bwd_rotate(dkr, cos, sin)
+    dcos = (dqr * q + dkr * k).sum(dim=1)
+    dsin = (dqr * rotate_pairs(q) + dkr * rotate_pairs(k)).sum(dim=1)
+    return dq, dk, dv, dcos, dsin
+
+
+class AttentionFn(torch.autograd.Function):
+    """Kernel K2 forward, plain recompute backward (JAX ``_attention_fused``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        return attention_cuda(q, k, v, kv_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, kv_mask, g)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+class SelfAttentionRotaryFn(torch.autograd.Function):
+    """Kernel K1 forward (k rotated here, q in the kernel), plain recompute
+    backward with gradients for cos and sin (JAX ``_self_attention_rotary_fused``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, kv_mask):
+        ctx.save_for_backward(q, k, v, cos, sin, kv_mask)
+        k_rot = apply_rotary(k, cos, sin).contiguous()
+        return attention_rotary_cuda(q, k_rot, v, cos, sin, kv_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos, sin, kv_mask = ctx.saved_tensors
+        grads = self_attention_rotary_bwd(q, k, v, cos, sin, kv_mask, g)
+        return (*(d.to(t.dtype) for d, t in zip(grads, (q, k, v, cos, sin))), None)
+
+
 def _use_kernel(implementation: str) -> bool:
     if implementation not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown attention implementation {implementation!r}")
@@ -179,7 +267,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               implementation: str = "auto") -> torch.Tensor:
     """Multi-head attention (B, H, N, D) with an optional key padding mask."""
     if _use_kernel(implementation):
-        return attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), kv_mask)
+        return AttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_mask)
     return attention_plain(q, k, v, kv_mask)
 
 
@@ -187,9 +275,8 @@ def self_attention_rotary(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor,
                           kv_mask: torch.Tensor | None = None,
                           implementation: str = "auto") -> torch.Tensor:
-    """Rotary self-attention: k is rotated here once, q inside the kernel."""
-    k_rot = apply_rotary(k, cos, sin)
+    """Rotary self-attention: k is rotated once outside the kernel, q inside."""
     if _use_kernel(implementation):
-        return attention_rotary_cuda(q.contiguous(), k_rot.contiguous(), v.contiguous(),
-                                     cos.contiguous(), sin.contiguous(), kv_mask)
-    return attention_plain(apply_rotary(q, cos, sin), k_rot, v, kv_mask)
+        return SelfAttentionRotaryFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           cos.contiguous(), sin.contiguous(), kv_mask)
+    return attention_plain(apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v, kv_mask)

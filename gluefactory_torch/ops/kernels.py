@@ -18,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -72,6 +73,13 @@ def build(source: str) -> Path:
     print(f"[gluefactory_torch] built {out.name} in {build_seconds[source]:.1f} s",
           flush=True)
     return out
+
+
+def build_all(sources: list[str]) -> None:
+    """Compile several sources at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        for future in [pool.submit(build, source) for source in sources]:
+            future.result()
 
 
 def load(source: str) -> ctypes.CDLL:

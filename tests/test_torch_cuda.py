@@ -57,3 +57,68 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
                          q[..., :32].contiguous())
     with pytest.raises(TypeError):
         A.attention_cuda(q.double(), q.double(), q.double())
+
+
+def test_add_kernel_is_bit_exact(device):
+    from gluefactory_torch.ops import elementwise as E
+
+    g = torch.Generator(device=device).manual_seed(1)
+    buf = torch.randn(2 * 65539 + 1, generator=g, device=device)
+    before = E.launches["add"]
+    cases = [(buf[:65536].view(256, 256), buf[65536:131072].view(256, 256)),
+             (buf[:65539], buf[65539:131078]),  # a tail of 3
+             (buf[1:65540], buf[65540:131079]),  # pointers not 16-byte aligned
+             (buf[:3], buf[3:6])]
+    for x, y in cases:
+        assert torch.equal(E.add_cuda(x, y), x + y)
+    assert E.launches["add"] == before + len(cases)
+    with pytest.raises(ValueError, match="contiguous"):
+        E.add_cuda(cases[0][0].t(), cases[0][1])
+    with pytest.raises(TypeError):
+        E.add_cuda(cases[0][0].double(), cases[0][1].double())
+    with pytest.raises(ValueError, match="shapes"):
+        E.add_cuda(cases[0][0], cases[1][1])
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),
+                                             (torch.bfloat16, 1e-2, 2e-2)])
+def test_kernel_gradients_match_plain_autograd(device, dtype, atol, rtol):
+    """Autograd through the kernels' Functions against autograd through the
+    plain versions (see GRAD_TOLERANCES in chip_smoke.py)."""
+    g = torch.Generator(device=device).manual_seed(2)
+    b, h, n = 2, 4, 300
+    q, k, v, cot = (torch.randn(b, h, n, 64, generator=g, device=device).to(dtype)
+                    for _ in range(4))
+    theta = torch.randn(b, n, 32, generator=g, device=device) * 3
+    cos = theta.cos().repeat_interleave(2, -1).to(dtype)
+    sin = theta.sin().repeat_interleave(2, -1).to(dtype)
+    mask = torch.rand(b, n, generator=g, device=device) > 0.2
+    for fn, inputs in ((A.self_attention_rotary, (q, k, v, cos, sin)), (A.attention, (q, k, v))):
+        grads = {}
+        for impl in ("auto", "xla"):
+            leaves = [t.clone().requires_grad_(True) for t in inputs]
+            fn(*leaves, kv_mask=mask, implementation=impl).backward(cot)
+            grads[impl] = [t.grad.float() for t in leaves]
+        for a, ref in zip(grads["auto"], grads["xla"]):
+            assert float((a - ref).abs().max()) <= atol + rtol * float(ref.abs().max())
+    x = q.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Functions"):
+        A.attention_cuda(x, k, v)
+
+
+def test_tiny_training_step_on_the_card(device):
+    """One step of the tiny flagship pipeline, LightGlue widened to the
+    kernels' head dim, through the kernels."""
+    import __graft_entry__
+    from gluefactory_torch.train import Trainer
+
+    conf = {"data": {"name": "homographies_ondevice", "pool_size": 2, "source_size": [96, 96],
+                     "image_size": 64, "max_gt_points": 48, "train_batch_size": 2},
+            "model": __graft_entry__._flagship_conf(tiny=True), "train": {"lr": 1e-3}}
+    # the kernels take head dim 64 only: 128-d descriptors over 2 heads
+    conf["model"]["matcher"].update(attention="auto", descriptor_dim=128)
+    trainer = Trainer(conf, device=device)
+    A.reset_launches()
+    scalars = trainer.step(0)
+    assert A.launches == {"attention_rotary": 4, "attention": 4}
+    assert scalars["skipped"] == 0.0 and scalars["grad_norm"] > 0

@@ -1,6 +1,6 @@
-"""The port and chip_smoke.py import and run with none of the JAX stack and
-none of the packages the GPU machine lacks (a stand-in, on the CPU, for the
-GPU machine's environment)."""
+"""The port and chip_smoke.py import and run (the flagship pipeline and a
+training step) with none of the JAX stack and none of the packages the GPU
+machine lacks (a stand-in, on the CPU, for the GPU machine's environment)."""
 
 import subprocess
 import sys
@@ -40,6 +40,18 @@ img0, img1, H = chip_smoke.make_pairs(1, 128, 96, "cpu")[0]
 pred, out, err = chip_smoke.run_pair(model, estimator, img0, img1, H)
 assert pred["keypoints1"].shape == (1, 48, 2) and pred["matches0"].shape == (1, 48)
 assert bool(torch.isfinite(pred["keypoints1"]).all()) and out["M_0to1"].shape == (3, 3)
+from gluefactory_torch.train import training
+
+tconf = {{"data": {{"name": "homographies_ondevice", "pool_size": 2, "source_size": [96, 96],
+                  "image_size": 64, "max_gt_points": 32, "train_batch_size": 2}},
+         "model": {{**conf, "name": "two_view_pipeline",
+                   "matcher": {{**conf["matcher"], "filter_threshold": 0.1}},
+                   "filter": {{"name": None}},
+                   "ground_truth": {{"name": "matchers.homography_matcher"}},
+                   "run_gt_in_forward": True}},
+         "train": {{"lr": 1e-4}}}}
+_, history = training(tconf, steps=1, device="cpu")
+assert history[0]["skipped"] == 0.0 and history[0]["loss/total"] > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

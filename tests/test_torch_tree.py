@@ -27,14 +27,16 @@ def test_runtime_files_are_tracked(tracked):
     package = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "gluefactory_torch").rglob("*")
                      if p.is_file() and "_build" not in p.parts
                      and "__pycache__" not in p.parts)
-    assert any(p.endswith(".cu") for p in package)
+    assert {"gluefactory_torch/csrc/attention.cu",
+            "gluefactory_torch/csrc/elementwise.cu"} <= set(package)
     for path in RUNTIME_FILES + package:
         assert path in tracked, f"{path} is read at run time but not tracked"
         assert _git("check-ignore", "-q", path).returncode != 0, f"{path} is gitignored"
 
 
 def test_build_products_are_ignored(tracked):
-    assert _git("check-ignore", "-q", "gluefactory_torch/_build/libattention_0.so").returncode == 0
+    for product in ("libattention_0.so", "libelementwise_0.so", "kernel_probe.json"):
+        assert _git("check-ignore", "-q", f"gluefactory_torch/_build/{product}").returncode == 0
     assert not any(p.startswith("gluefactory_torch/_build/") for p in tracked)
 
 

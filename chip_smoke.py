@@ -9,8 +9,12 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      nvcc call each, in parallel);
   3. kernels: K1 (rotary self-attention) and K2 (masked attention) against
      their plain PyTorch versions on the card, in float32, float16 and
-     bfloat16, then timed at the flagship shapes beside the plain version,
-     PyTorch's scaled_dot_product_attention and the card's bound;
+     bfloat16, at the flagship and training shapes, ragged shapes and shapes
+     that take the split-key plan; then timed in float32 at the flagship
+     (1x4x512x64), training (32x4x512x64) and probe (8x4x1024x64) shapes
+     beside the plain version, PyTorch's scaled_dot_product_attention and
+     the card's bounds (3xTF32 on the tensor cores, f32 on the CUDA cores),
+     with the plan (ops.attention.plan_attention) of each shape;
   4. flagship: SuperPoint -> LightGlue -> ZNCC refiner -> LO-RANSAC with the
      committed lg_tpu_stage2 weights on 4 rendered 480x360 pairs of known
      homography; every LightGlue attention must go through the kernels
@@ -18,8 +22,7 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      homographies must be recovered;
   5. probe: the kernel probe entry point (scripts/kernel_probe.py) in a
      subprocess, both workers executed and ok; K3 (elementwise add) held
-     bit-exact against x + y, timed beside torch.add; K2 timed at the probe's
-     8x4x1024x64;
+     bit-exact against x + y, timed beside torch.add;
   6. gradients: autograd through the kernels' Functions against autograd
      through the plain versions at the flagship shape, float32 and bfloat16;
   7. training: 5 steps of the stage-2 recipe at full width (batch 32,
@@ -41,6 +44,7 @@ from pathlib import Path
 
 T0 = time.perf_counter()
 H100_F32_FLOPS = 67e12  # dense float32 outside the tensor cores (data sheet)
+H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores; 3xTF32 does 3 passes
 H100_BYTES_PER_S = 3.35e12  # HBM3
 SEED = 20260417
 
@@ -233,9 +237,21 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def attention_bounds(b, h, nq, nk, d, nbytes):
+    """(3xTF32 bound, f32 CUDA-core bound, bytes bound) in ms of one call:
+    4*B*H*Nq*Nk*D FLOP (two products) done three times at the TF32 rate, or
+    once at the f32 rate, and each input read once and the output written
+    once at the HBM rate."""
+    flops = 4 * b * h * nq * nk * d
+    return (3 * flops / H100_TF32_FLOPS * 1e3, flops / H100_F32_FLOPS * 1e3,
+            nbytes / H100_BYTES_PER_S * 1e3)
+
+
 def check_kernels(device):
     """Parity of both kernels with their plain versions; timings at the
-    flagship shapes. Returns one JSON-ready dict per kernel."""
+    flagship, training and probe shapes. Returns one JSON-ready dict per
+    kernel, timed at the flagship shape, with every timed shape under
+    ``times_by_shape``."""
     import torch
     import torch.nn.functional as F
 
@@ -247,16 +263,19 @@ def check_kernels(device):
         "attention": dict(kernel=A.attention_cuda, plain=A.attention_plain, rotary=False,
                           replaces="gluefactory_tpu/ops/attention.py:89"),
     }
+    sms = torch.cuda.get_device_properties(device).multi_processor_count  # for the plans
     gen = torch.Generator(device=device).manual_seed(SEED)
     shapes = [(1, 4, n, n, 64) for n in (512, 1024, 2048)]
-    shapes += [(1, 4, 1000, 777, 64), (2, 4, 300, 300, 64)]
+    shapes += [(1, 4, 1000, 777, 64), (2, 4, 300, 300, 64), (1, 4, 200, 3000, 64)]
+    training = (32, 4, 512, 512, 64)  # float32 and bfloat16, the training path's types
     for name, kern in kernels.items():
         kern["max_abs_err"] = 0.0
         for dtype in (torch.float32, torch.float16, torch.bfloat16):
             atol, rtol = TOLERANCES[str(dtype).split(".")[1]]
-            for b, h, nq, nk, d in shapes:
+            cases = shapes + ([training] if dtype != torch.float16 else [])
+            for b, h, nq, nk, d in cases:
                 if kern["rotary"] and nq != nk:
-                    nq = nk = 1000  # self-attention: the unaligned case is square
+                    nq = nk  # self-attention: the unaligned cases are square
                 args = _attention_inputs(b, h, nq, nk, d, dtype, kern["rotary"], gen, device)
                 out = kern["kernel"](*args)
                 ref = kern["plain"](*args)
@@ -271,39 +290,48 @@ def check_kernels(device):
                     raise AssertionError(f"{name}: a fully-masked row is not zero")
                 if dtype == torch.float32:
                     kern["max_abs_err"] = max(kern["max_abs_err"], worst)
+                plan = A.plan_attention(b, h, nq, nk, sms)
                 log(f"  {name:17s} {str(dtype):14s} B,H,Nq,Nk,D={b},{h},{nq},{nk},{d}: "
-                    f"max |err| {worst:.3g} (atol {atol}, rtol {rtol}) ok")
+                    f"max |err| {worst:.3g} (atol {atol}, rtol {rtol}) ok; plan rows "
+                    f"{plan.rows}, {plan.splits} split(s) of {plan.tiles_per_split} tiles")
 
-    # timings at the flagship shapes, float32, the key mask of the real path
+    # timings in float32 with a key mask and no fully-masked item
     results = []
     for name, kern in kernels.items():
-        b, h, n, d = 1, 4, 512, 64
-        args = _attention_inputs(b, h, n, n, d, torch.float32, kern["rotary"], gen, device)
-        q, k, v, mask = args[0], args[1], args[2], args[-1]
-        if kern["rotary"]:
-            q_lib = A.apply_rotary(q, args[3], args[4])  # SDPA has no rotary: q pre-rotated
-        else:
-            q_lib = q
-        sdpa_mask = mask[:, None, None, :]
-        ms = graph_ms(lambda: kern["kernel"](*args))
-        plain_ms = graph_ms(lambda: kern["plain"](*args))
-        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            q_lib, k, v, attn_mask=sdpa_mask))
-        flops = 4 * b * h * n * n * d
-        nbytes = sum(t.numel() * t.element_size() for t in args) + q.numel() * 4  # + output
-        t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        times = []
+        for b, h, n, d in ((1, 4, 512, 64), (32, 4, 512, 64), (8, 4, 1024, 64)):
+            args = _attention_inputs(b, h, n, n, d, torch.float32, kern["rotary"], gen, device)
+            q, k, v, mask = args[0], args[1], args[2], args[-1]
+            mask[:] |= mask.sum(-1, keepdim=True) == 0  # keep the work of every item
+            # SDPA has no rotary: q pre-rotated
+            q_lib = A.apply_rotary(q, args[3], args[4]) if kern["rotary"] else q
+            sdpa_mask = mask[:, None, None, :]
+            reps = 20 if b == 1 else 5
+            ms = graph_ms(lambda: kern["kernel"](*args), reps=reps)
+            plain_ms = graph_ms(lambda: kern["plain"](*args), reps=reps)
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                q_lib, k, v, attn_mask=sdpa_mask), reps=reps)
+            nbytes = sum(t.numel() * t.element_size() for t in args) + q.numel() * 4  # + output
+            t_tf32, t_f32, t_bytes = attention_bounds(b, h, n, n, d, nbytes)
+            plan = A.plan_attention(b, h, n, n, sms)
+            times.append({"shape": [b, h, n, n, d], "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "bound_ms": max(t_tf32, t_bytes),
+                          "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
+                          "bound_ms_cuda_cores": t_f32, "plan": list(plan)})
+            log(f"  {name:17s} f32 B,H,N,D={b},{h},{n},{d}: kernel {ms * 1e3:.1f} us, plain "
+                f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us ({library_ms / ms:.2f}x "
+                f"the kernel), bound {max(t_tf32, t_bytes) * 1e3:.2f} us 3xTF32 "
+                f"({max(t_tf32, t_bytes) / ms:.1%}) / {t_f32 * 1e3:.2f} us f32 CUDA cores; "
+                f"{nbytes / 1e6:.2f} MB; plan rows {plan.rows}, {plan.splits} split(s) of "
+                f"{plan.tiles_per_split} tiles")
+        main = times[0]
         results.append({
             "name": name, "route": "cuda", "source": "gluefactory_torch/csrc/attention.cu",
             "replaces": kern["replaces"], "launches": 0,
-            "max_abs_err": kern["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            "max_abs_err": kern["max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "times_by_shape": times,
         })
-        log(f"  {name:17s} f32 B,H,N,D={b},{h},{n},{d}: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us, bound "
-            f"{max(t_ops, t_bytes) * 1e3:.2f} us ({flops / 1e6:.0f} MFLOP, "
-            f"{nbytes / 1e6:.2f} MB)")
     return results
 
 
@@ -314,12 +342,10 @@ PROBE_TIMEOUT = 300  # seconds for the whole probe (its workers have their own)
 
 def check_probe(device):
     """Run the probe entry point, hold K3 bit-exact against x + y, and time K3
-    and K2 at the probe's shapes. Returns (K3's JSON-ready dict, the probe's
-    verdict)."""
+    at the probe's shape (K2 at the probe's 8x4x1024x64 is timed in phase 3).
+    Returns (K3's JSON-ready dict, the probe's verdict)."""
     import torch
-    import torch.nn.functional as F
 
-    from gluefactory_torch.ops import attention as A
     from gluefactory_torch.ops import elementwise as E
 
     root = Path(__file__).resolve().parent
@@ -364,18 +390,6 @@ def check_probe(device):
         f"torch.add {library_ms * 1e3:.2f} us, bound {max(t_bytes, t_ops) * 1e3:.3f} us "
         f"({nbytes / 1e3:.0f} KB)")
 
-    # K2 at the probe's shape: the split-key design at N = 1024, batch 8
-    b, h, n, d = 8, 4, 1024, 64
-    q, k, v, mask = _attention_inputs(b, h, n, n, d, torch.float32, False, gen, device)
-    mask[1] = True  # the timing runs with no fully-masked item
-    k2_ms = graph_ms(lambda: A.attention_cuda(q, k, v, mask), reps=5)
-    k2_plain = graph_ms(lambda: A.attention_plain(q, k, v, mask), reps=5)
-    k2_lib = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask[:, None, None, :]), reps=5)
-    flops = 4 * b * h * n * n * d
-    log(f"  attention         f32 B,H,N,D={b},{h},{n},{d}: kernel {k2_ms * 1e3:.1f} us, "
-        f"plain {k2_plain * 1e3:.1f} us, SDPA {k2_lib * 1e3:.1f} us, bound "
-        f"{flops / H100_F32_FLOPS * 1e6:.1f} us ({flops / 1e9:.2f} GFLOP)")
     k3 = {"name": "add", "route": "cuda", "source": "gluefactory_torch/csrc/elementwise.cu",
           "replaces": "gluefactory_tpu/scripts/pallas_probe.py:35", "launches": 0,
           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
@@ -547,6 +561,27 @@ def check_training(device):
 
 # --- main --------------------------------------------------------------------
 
+def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, spill stores/loads") for each kernel in the
+    output of nvcc -Xptxas=-v; the name is the mangled one cut after the
+    template arguments (e.g. attention_kernelIfLb1E: float, rotary)."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            mangled = line.split("for ")[-1].strip()
+            match = re.search(r"\d+([a-z_]+_kernel(?:I.*?E)?)E?v", mangled)
+            name, spill = (match.group(1) if match else mangled[:60]), ""
+        elif name and "spill" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((name, f"{regs.group(1) if regs else '?'} registers, {spill}"))
+            name = None
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -583,9 +618,8 @@ def main() -> int:
         kernels.load(source)
         log(f"  {source}: nvcc {kernels.build_seconds[source]:.1f} s")
         ptxas = kernels.library_path(source).with_suffix(".log").read_text()
-        for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+        for name, usage in ptxas_usage(ptxas):
+            log(f"  ptxas {name}: {usage}")
     log(f"  built in {time.perf_counter() - t:.1f} s")
 
     log("phase 3: kernels against their plain versions")

@@ -4,7 +4,15 @@ of its class and bases; ``model(data)`` maps a dict of batched tensors to a
 dict of predictions, and ``model.loss(pred, data)`` to (losses, metrics),
 dicts of (B,) tensors with the sum to minimise in ``losses["total"]``.
 ``trainable: False`` in a model's conf freezes its parameters: the trainer
-leaves them out of the optimizer."""
+leaves them out of the optimizer.
+
+Each model's defaults hold every key of the JAX model's, at JAX's value. A
+key the port does not implement is listed in the class's ``unported_conf``
+(collected over the bases, as the defaults are; a dotted key names a nested
+one, a key of a nested dict covers each of its entries): set to anything but
+its default, the model refuses to build (``NotImplementedError``) rather than
+run another computation. Keys that no default holds are merged and ignored,
+as in the JAX package."""
 
 from __future__ import annotations
 
@@ -19,12 +27,20 @@ from ..utils.device import resolve_device
 
 
 class BaseModel(nn.Module):
-    default_conf: ClassVar[dict] = {"name": None, "trainable": True}
+    default_conf: ClassVar[dict] = {"name": None, "trainable": True, "timeit": False}
+    unported_conf: ClassVar[frozenset] = frozenset({"timeit"})
     required_data_keys: ClassVar[list] = []
 
     def __init__(self, conf: dict | None = None):
         super().__init__()
-        self.conf = merge(collect_defaults(type(self)), conf)
+        defaults = collect_defaults(type(self))
+        self.conf = merge(defaults, conf)
+        refused = unported_settings(type(self), self.conf, defaults)
+        if refused:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not implement "
+                + ", ".join(f"{key}={value!r}" for key, value in refused.items())
+                + " (only the default values are ported)")
 
     def forward(self, data: dict) -> dict:
         for key in self.required_data_keys:
@@ -38,6 +54,37 @@ class BaseModel(nn.Module):
 
     def loss(self, pred: dict, data: dict) -> tuple[dict, dict]:
         raise NotImplementedError
+
+
+def _leaves(value, prefix: str) -> dict:
+    if not isinstance(value, dict):
+        return {prefix: value}
+    out = {}
+    for key, sub in value.items():
+        out.update(_leaves(sub, f"{prefix}.{key}"))
+    return out
+
+
+def _lookup(conf: dict, dotted: str, missing):
+    for part in dotted.split("."):
+        if not isinstance(conf, dict) or part not in conf:
+            return missing
+        conf = conf[part]
+    return conf
+
+
+def unported_settings(cls: type, conf: dict, defaults: dict) -> dict:
+    """The unported keys of ``cls`` (dotted) whose value in ``conf`` is not
+    their default, with that value."""
+    keys = set().union(*(klass.__dict__.get("unported_conf", ()) for klass in cls.__mro__))
+    missing = object()
+    refused = {}
+    for key in sorted(keys):
+        for leaf, default in _leaves(_lookup(defaults, key, missing), key).items():
+            value = _lookup(conf, leaf, missing)
+            if value != default:
+                refused[leaf] = None if value is missing else value
+    return refused
 
 
 def get_model(name: str) -> type[BaseModel]:

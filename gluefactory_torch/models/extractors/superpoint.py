@@ -61,6 +61,8 @@ class VGGBackbone(nn.Module):
 
 class SuperPoint(BaseModel):
     default_conf: ClassVar[dict] = {
+        "has_detector": True,
+        "has_descriptor": True,
         "descriptor_dim": 256,
         "max_num_keypoints": 1024,
         "nms_radius": 4,
@@ -68,11 +70,41 @@ class SuperPoint(BaseModel):
         "remove_borders": 4,
         "refinement_radius": 0,
         "refinement_mode": "softargmax",
+        "dense_outputs": False,
+        "training_outputs": False,
         "desc_sampling": "center",
         "post_relu_affine": False,
         "channels": [64, 64, 64, 64, 128, 128, 128, 128],
         "head_channels": 256,
+        "dtype": "float32",
+        "weights": None,
+        "loss": {  # the detector and descriptor losses of SuperPoint training
+            "cell_pos_weight": 32.0,
+            "cell_labels": "hard",
+            "desc_weight": 1.0,
+            "desc_lambda_d": 250.0,
+            "desc_margin_pos": 1.0,
+            "desc_margin_neg": 0.2,
+            "desc_cell_dist": 8.0,
+            "desc_nll_weight": 0.0,
+            "desc_nll_temp": 0.1,
+            "desc_match_th": 3.0,
+            "desc_caps_weight": 0.0,
+            "desc_caps_window": 24.0,
+            "desc_caps_temp": 0.07,
+            "loc_weight": 0.0,
+            "loc_radius": 2,
+            "loc_max_dist": 4.0,
+            "loc_anchor": "gt",
+            "peaky_weight": 0.0,
+            "peaky_radius": 2,
+        },
     }
+    # inference in float32 with both heads is what is ported; the weights
+    # come from utils/weights.py, not from a conf key
+    unported_conf: ClassVar[frozenset] = frozenset({
+        "has_detector", "has_descriptor", "dense_outputs", "training_outputs", "dtype",
+        "weights", "loss"})
     required_data_keys: ClassVar[list] = ["image"]
 
     def __init__(self, conf: dict | None = None):

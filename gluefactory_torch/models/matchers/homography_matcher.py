@@ -16,7 +16,10 @@ class HomographyMatcher(BaseModel):
         "use_lines": False,
         "th_positive": 3.0,
         "th_negative": 6.0,
+        "line_dist_th": 5.0,
+        "line_overlap_th": 0.2,
     }
+    unported_conf: ClassVar[frozenset] = frozenset({"line_dist_th", "line_overlap_th"})
     required_data_keys: ClassVar[list] = ["H_0to1", "keypoints0", "keypoints1"]
 
     def __init__(self, conf: dict | None = None):

@@ -149,8 +149,18 @@ class LightGlue(BaseModel):
         "width_confidence": -1,
         "checkpointed": True,  # recompute each layer in the backward pass
         "save_layer_outputs": True,  # per-layer descriptors for the loss
-        "loss": {"gamma": 1.0},  # weight gamma^(L-1-i) of layer i's NLL
+        "dtype": "float32",
+        "weights": None,
+        "loss": {
+            "gamma": 1.0,  # weight gamma^(L-1-i) of layer i's NLL
+            "fn": "nll",
+            "nll_balancing": 0.5,
+        },
     }
+    # float32 is what is ported (bf16: ROADMAP queue 1, item 2); the weights
+    # come from utils/weights.py, not from a conf key
+    unported_conf: ClassVar[frozenset] = frozenset({
+        "dtype", "weights", "loss.fn", "loss.nll_balancing"})
     required_data_keys: ClassVar[list] = [
         "keypoints0", "keypoints1", "descriptors0", "descriptors1"]
 

@@ -10,6 +10,8 @@ Each kernel has three parts here:
     inputs and launches the hand-written CUDA kernel of
     ``csrc/attention.cu`` on CUDA tensors, counting each launch in
     ``launches``. Given CPU tensors it runs the plain version instead;
+  - the kernel's layout, chosen here by the amount of work and the card's
+    SM count (``plan_attention``) and passed to the kernel as arguments;
   - a ``torch.autograd.Function`` around each kernel (``AttentionFn``,
     ``SelfAttentionRotaryFn``), the counterparts of the JAX package's
     ``_attention_fused`` and ``_self_attention_rotary_fused``: the forward
@@ -26,6 +28,9 @@ Each kernel has three parts here:
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +40,9 @@ NEG_INF = -1e30
 SOURCE = "attention.cu"
 HEAD_DIMS = (64,)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+KEY_TILE = 64  # keys per K/V tile of the kernel
+DEFAULT_SMS = 132  # an H100 SXM's SMs: the plan's default where no card is asked
 
 # launches of each CUDA kernel in this process
 launches = {"attention": 0, "attention_rotary": 0}
@@ -90,13 +98,44 @@ def attention_rotary_plain(q: torch.Tensor, k_rotated: torch.Tensor, v: torch.Te
     return attention_plain(qr, k_rotated, v, kv_mask).to(q.dtype)
 
 
+class AttentionPlan(NamedTuple):
+    """The kernel's layout. The grid is (ceil(Nq / rows), B*H, splits):
+    block (x, bh, s) takes query rows [x*rows, (x+1)*rows) and key tiles
+    [s*tiles_per_split, (s+1)*tiles_per_split) of KEY_TILE keys each. With
+    ``splits`` > 1 the splits write partial softmax states that a second
+    kernel merges."""
+
+    rows: int  # query rows per block: 16 per warp, 16, 32 or 64
+    tiles_per_split: int
+    splits: int
+
+
+def plan_attention(b: int, h: int, nq: int, nk: int, sms: int = DEFAULT_SMS) -> AttentionPlan:
+    """Blocks of 64 query rows; when they are too few to fill the card's
+    ``sms`` SMs twice, the key tiles are split into ranges so that the grid
+    reaches 2 * ``sms`` blocks, at most one split per tile."""
+    full_grid = 2 * sms
+    n_tiles = math.ceil(nk / KEY_TILE)
+    rows = 64
+    blocks = b * h * math.ceil(nq / rows)
+    if blocks >= full_grid:
+        return AttentionPlan(rows, n_tiles, 1)
+    tiles_per_split = math.ceil(n_tiles / min(n_tiles, math.ceil(full_grid / max(blocks, 1))))
+    return AttentionPlan(rows, tiles_per_split, math.ceil(n_tiles / tiles_per_split))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load(SOURCE)
     if lib.gf_attention.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gf_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
+        lib.gf_attention.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.gf_attention.restype = i
-        lib.gf_attention_rotary.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.gf_attention_rotary.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.gf_attention_rotary.restype = i
     return lib
 
@@ -111,6 +150,9 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+    if name != "kv_mask" and t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies 16-byte chunks and needs a "
+                         "16-byte-aligned tensor")
 
 
 def _check_inputs(q, k, v, kv_mask):
@@ -143,21 +185,46 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: error {rc}")
 
 
+def _scratch(plan: AttentionPlan, q: torch.Tensor) -> tuple[torch.Tensor | None, int, int]:
+    """The split plan's f32 scratch in one tensor: partial accumulators
+    (splits, B*H, Nq, D), then (max, sum) pairs (splits, B*H, Nq, 2); none
+    for one split. Returns it with the addresses of both parts. Freed after
+    the launch is enqueued, it goes back to the allocator in stream order."""
+    if plan.splits == 1:
+        return None, 0, 0
+    b, h, nq, d = q.shape
+    n = plan.splits * b * h * nq
+    part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    return part, part.data_ptr(), part.data_ptr() + n * d * 4
+
+
+def _plan_for(q: torch.Tensor, nk: int) -> AttentionPlan:
+    b, h, nq, _ = q.shape
+    return plan_attention(b, h, nq, nk, _sm_count(q.device.index))
+
+
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel K2: masked attention. Same contract as ``attention_plain``."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask)
-    b, h, nq, nk, d = _check_inputs(q, k, v, kv_mask)
+    _check_inputs(q, k, v, kv_mask)
+    if q.shape[2] == 0:
+        return torch.empty_like(q)
+    return _launch_attention(q, k, v, kv_mask, _plan_for(q, k.shape[2]))
+
+
+def _launch_attention(q, k, v, kv_mask, plan: AttentionPlan) -> torch.Tensor:
+    """K2 under ``plan`` on inputs that ``_check_inputs`` accepted."""
+    b, h, nq, d = q.shape
     out = torch.empty_like(q)
-    if nq == 0:
-        return out
     lib = _library()
     with torch.cuda.device(q.device):
+        _part, part_o, part_ml = _scratch(plan, q)
         rc = lib.gf_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
-            b, h, nq, nk, d, torch.cuda.current_stream(q.device).cuda_stream)
+            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(), part_o, part_ml,
+            b, h, nq, k.shape[2], d, *plan, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "attention")
     launches["attention"] += 1
     return out
@@ -175,14 +242,22 @@ def attention_rotary_cuda(q: torch.Tensor, k_rotated: torch.Tensor, v: torch.Ten
         raise ValueError(f"rotary self-attention needs Nq == Nk, got {nq} and {nk}")
     _check("cos", cos, (b, nq, d), q.dtype, q.device)
     _check("sin", sin, (b, nq, d), q.dtype, q.device)
+    return _launch_attention_rotary(q, k_rotated, v, cos, sin, kv_mask, _plan_for(q, nk))
+
+
+def _launch_attention_rotary(q, k_rotated, v, cos, sin, kv_mask,
+                             plan: AttentionPlan) -> torch.Tensor:
+    """K1 under ``plan`` on inputs that ``attention_rotary_cuda`` accepted."""
+    b, h, n, d = q.shape
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
+        _part, part_o, part_ml = _scratch(plan, q)
         rc = lib.gf_attention_rotary(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_rotated.data_ptr(), v.data_ptr(),
             cos.data_ptr(), sin.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
-            b, h, nq, d, torch.cuda.current_stream(q.device).cuda_stream)
+            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(), part_o, part_ml,
+            b, h, n, d, *plan, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "attention_rotary")
     launches["attention_rotary"] += 1
     return out

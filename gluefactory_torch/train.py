@@ -14,7 +14,12 @@ As in the JAX trainer:
     (0 for the first update).
 
 Not ported yet: the plateau controller, ``lr_scaling``, evaluation,
-checkpoints, several GPUs, datasets other than the on-device engine.
+checkpoints, several GPUs, datasets other than the on-device engine. So the
+cadence keys of a recipe (``eval_every_iter``, ``save_every_iter``,
+``log_every_iter``, ``keep_last_checkpoints``) and the checkpoint choice
+(``best_key``, ``best_mode``) are ignored until evaluation and checkpoints
+land; every step logs. ``run_benchmarks``, which would change what a run
+selects, raises unless empty.
 
 CLI: ``python -m gluefactory_torch.train --conf path.yaml [--steps N]
 [--device cuda] [--weights blob] [dot.key=value ...]``
@@ -47,6 +52,7 @@ default_train_conf = {
     "lr_scaling": [],  # not ported: must stay empty
     "load_experiment": None,  # not ported: pass a weight blob to Trainer
     "clip_grad": 1.0,
+    "run_benchmarks": [],  # not ported: must stay empty
 }
 
 default_conf = {"data": {"name": None}, "model": {"name": None}, "train": default_train_conf}
@@ -172,6 +178,10 @@ class Trainer:
         self.device = resolve_device(device)
         self.conf = merge(default_conf, conf)
         tconf = self.conf["train"]
+        if tconf["run_benchmarks"]:
+            raise NotImplementedError(
+                f"run_benchmarks {tconf['run_benchmarks']!r} is not ported: the benchmarks "
+                "after each epoch and the checkpoint they select need evaluation")
         self.dataset = get_dataset(self.conf["data"]["name"])(self.conf["data"])
         self.pool = pool if pool is not None else upload_pool(
             self.dataset.build_pool("train"), self.device)

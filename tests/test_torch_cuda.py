@@ -48,6 +48,43 @@ def test_kernels_match_plain(device, dtype, atol, shape):
     assert A.launches["attention_rotary"] == before["attention_rotary"] + 1
 
 
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 0.0),
+                                             (torch.bfloat16, 8e-3, 8e-3)])
+def test_kernels_match_plain_at_the_training_shape(device, dtype, atol, rtol):
+    """32x4x512x64: one block walks all keys (see TOLERANCES in chip_smoke.py)."""
+    import chip_smoke
+
+    assert A._plan_for(torch.empty(32, 4, 512, 64, device=device), 512).splits == 1
+    g = torch.Generator(device=device).manual_seed(3)
+    for kernel, plain, rotary in ((A.attention_cuda, A.attention_plain, False),
+                                  (A.attention_rotary_cuda, A.attention_rotary_plain, True)):
+        args = chip_smoke._attention_inputs(32, 4, 512, 512, 64, dtype, rotary, g, device)
+        out, ref = kernel(*args).float(), plain(*args).float()
+        assert bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+        assert float(out[1].abs().max()) == 0.0  # the fully-masked item
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 512, 512), (1, 4, 200, 3000), (2, 4, 300, 300)])
+def test_split_plans_match_plain_and_one_split(device, shape):
+    """Shapes that take the split-key plan (partial states merged by a second
+    kernel) against the plain version and against the one-split layout."""
+    import chip_smoke
+
+    b, h, nq, nk = shape
+    plan = A._plan_for(torch.empty(b, h, nq, 64, device=device), nk)
+    assert plan.splits > 1
+    whole = A.AttentionPlan(64, -(-nk // A.KEY_TILE), 1)
+    g = torch.Generator(device=device).manual_seed(4)
+    q, k, v, mask = chip_smoke._attention_inputs(b, h, nq, nk, 64, torch.float32, False, g,
+                                                 device)
+    out = A.attention_cuda(q, k, v, mask)
+    torch.testing.assert_close(out, A.attention_plain(q, k, v, mask), atol=2e-5, rtol=0)
+    torch.testing.assert_close(out, A._launch_attention(q, k, v, mask, whole),
+                               atol=2e-6, rtol=0)
+    with pytest.raises(RuntimeError, match="error -1"):  # a plan that misses keys
+        A._launch_attention(q, k, v, mask, plan._replace(splits=plan.splits - 1))
+
+
 def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
     q = torch.randn(1, 4, 64, 64, device=device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -57,6 +94,9 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(device):
                          q[..., :32].contiguous())
     with pytest.raises(TypeError):
         A.attention_cuda(q.double(), q.double(), q.double())
+    buf = torch.randn(q.numel() + 1, device=device)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.attention_cuda(buf[1:].view(q.shape), q, q)
 
 
 def test_add_kernel_is_bit_exact(device):

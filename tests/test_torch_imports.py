@@ -17,6 +17,7 @@ sys.path.insert(0, {root!r})
 import importlib, pkgutil
 import torch
 import chip_smoke
+import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):
     importlib.import_module(mod.name)

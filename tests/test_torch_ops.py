@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import attention_variants
 from gluefactory_tpu.geometry import homography as jhomography
 from gluefactory_tpu.ops import assignment as jassignment
 from gluefactory_tpu.ops import attention as jattention
@@ -206,3 +207,122 @@ def test_homography_ops_match_jax():
                                                jnp.asarray(Hs), jnp.asarray(size)),
            atol=1e-4)
 
+
+
+# --- the arithmetic of the attention kernels (csrc/attention.cu) on the CPU -----
+
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as cvt.rna.tf32.f32 does: to nearest on the low
+    13 mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b from TF32 operands, accumulated in float32: 3xTF32 splits each
+    operand as big = tf32(x), small = tf32(x - big) and sums small*big +
+    big*small + big*big; 1xTF32 takes big*big alone."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+def _attention_emulated(q, k, v, mask, passes):
+    """The kernel's arithmetic in float32: q pre-scaled by D^-1/2 log2(e),
+    an exp2 online softmax over 64-key tiles, the key tiles cut into the
+    ranges of ``plan_attention`` and the ranges merged as the merge kernel
+    does (0 where every key is masked)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    plan = tattention.plan_attention(b, h, nq, nk)
+    qs = q * (d ** -0.5 * LOG2E)
+    keys = plan.tiles_per_split * tattention.KEY_TILE
+    parts = []
+    for s in range(plan.splits):
+        m = torch.full((b, h, nq, 1), -np.inf)
+        l = torch.zeros(b, h, nq, 1)
+        acc = torch.zeros(b, h, nq, d)
+        for t0 in range(s * keys, min(nk, (s + 1) * keys), tattention.KEY_TILE):
+            kt = k[:, :, t0:t0 + tattention.KEY_TILE]
+            vt = v[:, :, t0:t0 + tattention.KEY_TILE]
+            sc = _tf32_product(qs, kt.transpose(-1, -2), passes)
+            sc = sc.masked_fill(~mask[:, None, None, t0:t0 + kt.shape[2]], -np.inf)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            none = m_new == -np.inf  # no kept key yet
+            p = torch.exp2(sc - torch.where(none, 0.0, m_new))
+            alpha = torch.where(none, 1.0, torch.exp2(m - m_new))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _tf32_product(p, vt, passes)
+            m = m_new
+        parts.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    num, den = torch.zeros(b, h, nq, d), torch.zeros(b, h, nq, 1)
+    for m, l, acc in parts:
+        w = torch.where(mx == -np.inf, 0.0, torch.exp2(m - mx))
+        num, den = num + w * acc, den + w * l
+    return num / den.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_3xtf32_attention_arithmetic_holds_f32_tolerance(rotary):
+    """3xTF32 products keep the kernels within 2e-5 of the plain versions
+    (and of JAX's attention_xla) at 2x4x512x64 with a key mask, a
+    fully-masked item and a split plan; 1xTF32 alone does not."""
+    rng = _rng(11)
+    b, h, n, d = 2, 4, 512, 64
+    q, k, v = _qkv(rng, b, h, n, n, d)
+    mask = rng.uniform(size=(b, n)) > 0.15
+    mask[1] = False
+    assert tattention.plan_attention(b, h, n, n).splits > 1
+    tq, tk, tv, tmask = map(torch.from_numpy, (q, k, v, mask))
+    if rotary:
+        theta = rng.normal(size=(b, n, d // 2)).astype(np.float32) * 3
+        tc = torch.from_numpy(np.repeat(np.cos(theta), 2, -1))
+        ts = torch.from_numpy(np.repeat(np.sin(theta), 2, -1))
+        tk = tattention.apply_rotary(tk, tc, ts)
+        ref = tattention.attention_rotary_plain(tq, tk, tv, tc, ts, tmask)
+        tq = tattention.apply_rotary(tq, tc, ts)  # the kernel rotates q in f32
+    else:
+        ref = tattention.attention_plain(tq, tk, tv, tmask)
+        _close(ref, jattention.attention_xla(*map(jnp.asarray, (q, k, v, mask))), atol=2e-5)
+    out = _attention_emulated(tq, tk, tv, tmask, passes=3)
+    _close(out, ref.numpy(), atol=2e-5)
+    assert float(out[1].abs().max()) == 0.0
+    err_1x = float((_attention_emulated(tq, tk, tv, tmask, passes=1) - ref).abs().max())
+    assert err_1x > 2e-5, err_1x
+
+
+# --- attention_variants.py: other builds of the kernels, held on the card --------
+
+@pytest.mark.parametrize("name", list(attention_variants.VARIANTS))
+def test_attention_variants_replace_lines_of_the_kernel_source(name):
+    """Each variant's lines are in the shipped source once; only the shipped
+    variant builds the source as it is."""
+    shipped = (tattention.kernels.CSRC_DIR / tattention.SOURCE).read_text()
+    variant = attention_variants.variant_source(attention_variants.VARIANTS[name])
+    assert (variant == shipped) == (name == "shipped")
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_reordered_plain_attention_is_the_same_function(rotary):
+    """The study's plain path with its sums in another order computes the
+    same attention, fully-masked rows as zeros."""
+    rng = _rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 2, 70, 64)).astype(np.float32))
+               for _ in range(3))
+    mask = torch.from_numpy(rng.uniform(size=(2, 70)) > 0.2)
+    mask[1] = False
+    theta = torch.from_numpy(rng.standard_normal((2, 70, 32)).astype(np.float32))
+    cos, sin = theta.cos().repeat_interleave(2, -1), theta.sin().repeat_interleave(2, -1)
+    args = (q, k, v, cos, sin, mask) if rotary else (q, k, v, mask)
+    fn = tattention.attention_rotary_plain if rotary else tattention.attention_plain
+    ref = fn(*args)
+    with attention_variants.sums_reordered():
+        out = fn(*args)
+    assert tattention.attention_plain.__name__ == "attention_plain"  # restored
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+    assert float(out[1].abs().max()) == 0.0

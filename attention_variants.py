@@ -12,11 +12,12 @@ For each it prints one JSON line with:
   - the error of K1 and K2 at 32x4x512x64 against an exact float64 reference:
     max, rms, and the mean of err * sign(ref) (negative: a bias toward 0);
   - their times at 1x4x512, 32x4x512 and 8x4x1024 (CUDA graphs);
-  - phase 7's step-0 comparison over the first N batches of the stage-2
-    recipe: the worst LightGlue gradient difference from the plain path,
-    relative to that parameter's largest gradient (the gate is
-    TRAIN_GRAD_RTOL), and the confidence targets (a layer's argmax equals the
-    final layer's) that differ from the plain path's.
+  - phase 7's step-0 gate (chip_smoke.against) over the first N batches of
+    the stage-2 recipe: the worst LightGlue gradient difference from the
+    plain path outside the token_confidence heads, relative to that
+    parameter's largest gradient (gate TRAIN_GRAD_RTOL), and the confidence
+    targets (a layer's argmax equals the final layer's) that differ from the
+    plain path's (gate TRAIN_FLIP_SHARE of them).
 The plain path with its attention sums in another order (keys and head dims
 reversed: the same function) goes through the same comparison. Last, the
 shipped build is timed under other layouts than plan_attention's (PLANS).
@@ -115,58 +116,6 @@ def sums_reordered():
         A.attention_plain = plain
 
 
-def exact(args, rotary: bool) -> torch.Tensor:
-    """The attention of ``args`` in float64, with the kernels' mask rules."""
-    q, k, v = (x.double() for x in args[:3])
-    mask = args[-1][:, None, None, :]
-    if rotary:
-        q = A.apply_rotary(q, args[3].double(), args[4].double())
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
-    s = s.masked_fill(~mask, float("-inf"))
-    p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~mask, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdim=True), v)
-
-
-def errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
-    d = out.double() - ref
-    return {"max": float(d.abs().max()), "rms": float(d.pow(2).mean().sqrt()),
-            "bias": float((d * ref.sign()).mean())}
-
-
-def step0(trainer, pool, seed: int):
-    """Phase 7's step 0 without the update: (loss, LightGlue gradients,
-    confidence targets of every layer but the last, False where invalid)."""
-    model = trainer.model
-    batch = trainer.dataset.make_batch(pool, seed)
-    model.zero_grad(set_to_none=True)
-    pred = model(batch)
-    losses, _ = model.loss(pred, batch)
-    loss = losses["total"].mean()
-    loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.matcher.named_parameters()}
-    model.zero_grad(set_to_none=True)
-    ctx = {**pred, **batch}
-    valid0, valid1 = ctx["keypoint_valid0"], ctx["keypoint_valid1"]
-    final = pred["log_assignment"]
-    targets = []
-    with torch.no_grad():
-        for i, head in enumerate(model.matcher.log_assignment[:-1]):
-            scores = head(pred["desc_layers0"][i], pred["desc_layers1"][i], valid0, valid1)[0]
-            targets.append((scores.argmax(2) == final.argmax(2)) & valid0)
-            targets.append((scores.argmax(1) == final.argmax(1)) & valid1)
-    return float(loss.detach()), grads, targets
-
-
-def against(ref, run) -> dict:
-    """The gate's reading of ``run`` against the plain path's ``ref``."""
-    errs = {n: float((run[1][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-            for n, g in ref[1].items()}
-    worst = max(errs, key=errs.get)
-    return {"loss_rel": abs(run[0] - ref[0]) / abs(ref[0]), "worst": errs[worst],
-            "worst_param": worst, "passes": errs[worst] <= C.TRAIN_GRAD_RTOL,
-            "flips": sum(int((a != b).sum()) for a, b in zip(ref[2], run[2]))}
-
-
 def gate_study(libs: dict, n_seeds: int, device) -> dict:
     """Phase 7's step-0 gate over ``n_seeds`` batches for each library in
     ``libs`` and for the reordered plain path. Returns name: per-seed readings."""
@@ -186,13 +135,13 @@ def gate_study(libs: dict, n_seeds: int, device) -> dict:
     seeds = list(itertools.islice(dataset.get_data_loader("train"), n_seeds))
     readings = {name: [] for name in ("plain, sums reordered", *libs)}
     for seed in seeds:
-        ref = step0(trainers["xla"], pool, seed)
+        ref = C.step0(trainers["xla"], pool, seed)
         with sums_reordered():
-            readings["plain, sums reordered"].append(against(ref, step0(trainers["xla"], pool,
-                                                                        seed)))
+            readings["plain, sums reordered"].append(C.against(ref, C.step0(trainers["xla"],
+                                                                              pool, seed)))
         for name, lib in libs.items():
             with launching(lib):
-                readings[name].append(against(ref, step0(trainers["auto"], pool, seed)))
+                readings[name].append(C.against(ref, C.step0(trainers["auto"], pool, seed)))
         print(json.dumps({"seed": seed, **{n: {k: r[-1][k] for k in ("worst", "flips")}
                                            for n, r in readings.items()}}), flush=True)
     return readings
@@ -228,9 +177,9 @@ def main(argv: list[str] | None = None) -> None:
     for rotary in (False, True):
         inputs = cases[rotary, 32]
         plain = (A.attention_rotary_plain if rotary else A.attention_plain)(*inputs)
-        refs[rotary] = (plain, exact(inputs, rotary))
+        refs[rotary] = (plain, C.exact(inputs, rotary))
         print(f"# plain {'K1' if rotary else 'K2'} 32x4x512 vs float64: "
-              f"{json.dumps(errors(plain, refs[rotary][1]))}", flush=True)
+              f"{json.dumps(C.errors(plain, refs[rotary][1]))}", flush=True)
 
     rows = {}
     for name in names:
@@ -242,7 +191,7 @@ def main(argv: list[str] | None = None) -> None:
                 label = "K1" if rotary else "K2"
                 out = kern(*cases[rotary, 32])
                 plain, ref = refs[rotary]
-                row[f"{label} vs float64"] = errors(out, ref)
+                row[f"{label} vs float64"] = C.errors(out, ref)
                 row[f"{label} vs plain max"] = float((out - plain).abs().max())
                 for b, h, n in SHAPES:
                     ms = C.graph_ms(lambda: kern(*cases[rotary, b]), reps=20 if b == 1 else 5)

@@ -15,6 +15,9 @@
 // aligned, goes element by element. Enough blocks to cover n once, capped at
 // a few waves of the 132 SMs.
 //
+// gf_launch_empty launches a kernel that does nothing: its time in a CUDA
+// graph is the floor under any kernel launch, the add at 256x256 included.
+//
 // Built with plain nvcc into a shared library with a C interface; no
 // PyTorch headers (see gluefactory_torch/ops/kernels.py).
 
@@ -54,6 +57,8 @@ int blocks_for(long long work) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0; }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // out[i] = x[i] + y[i] for i < n. Returns cudaGetLastError() after the
@@ -78,5 +83,11 @@ extern "C" int gf_add_f32(const float* x, const float* y, float* out, long long 
   if (done < n) {
     add_f32_scalar<<<blocks_for(n - done), kThreads, 0, stream>>>(x, y, out, done, n);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One block of one thread that does nothing. Returns cudaGetLastError().
+extern "C" int gf_launch_empty(void* stream_) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream_)>>>();
   return static_cast<int>(cudaGetLastError());
 }

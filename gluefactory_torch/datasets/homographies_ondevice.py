@@ -75,29 +75,68 @@ def _segment_distance(px, py, p0, p1):
     return np.hypot(px - (xa + t * dx), py - (ya + t * dy))
 
 
+def _bresenham(img, p0, p1, color):
+    """cv2.line of thickness 1: OpenCV's 8-connected line iterator."""
+    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
+    h, w = img.shape
+    if x1 < x0:  # left to right
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    dx, dy = x1 - x0, abs(y1 - y0)
+    step_y = -1 if y1 < y0 else 1
+    steep = dy > dx
+    if steep:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = x0, y0
+    for _ in range(dx + 1):
+        if 0 <= x < w and 0 <= y < h:
+            img[y, x] = color
+        minor = err < 0
+        err += -2 * dy + (2 * dx if minor else 0)
+        if steep:
+            y, x = y + step_y, x + minor
+        else:
+            x, y = x + 1, y + step_y * minor
+
+
+def _fill_disk(img, center, radius, color):
+    win = _window(img, center[0] - radius, center[1] - radius, center[0] + radius,
+                  center[1] + radius)
+    if win is not None:
+        sl, px, py = win
+        img[sl][(px - center[0]) ** 2 + (py - center[1]) ** 2 <= radius * radius] = color
+
+
 def draw_line(img, p0, p1, color, thickness):
-    """A segment of the given thickness with round ends."""
-    r = max(thickness / 2.0, 0.5)
-    win = _window(img, min(p0[0], p1[0]) - r, min(p0[1], p1[1]) - r,
-                  max(p0[0], p1[0]) + r, max(p0[1], p1[1]) + r)
-    if win is None:
+    """cv2.line: a thin line is OpenCV's 8-connected one; a thick one is the
+    quad of half-width t/2 (t/2 + 0.5 for odd t) around the segment with a
+    disk of radius (t + 1) // 2 at each end, as OpenCV draws it."""
+    if thickness <= 1:
+        _bresenham(img, p0, p1, color)
         return
-    sl, px, py = win
-    img[sl][_segment_distance(px, py, p0, p1) <= r] = color
+    p0, p1 = np.asarray(p0, np.float64), np.asarray(p1, np.float64)
+    d = p1 - p0
+    length = float(np.hypot(d[0], d[1]))
+    if length > 0:
+        half = thickness / 2.0 + (0.5 if thickness & 1 else 0.0)
+        dp = np.round(np.array([-d[1], d[0]]) / length * half * 65536) / 65536  # 16.16
+        fill_polygon(img, np.stack([p0 + dp, p0 - dp, p1 - dp, p1 + dp]), color)
+    for end in (p0, p1):
+        _fill_disk(img, end, (thickness + 1) // 2, color)
 
 
 def fill_ellipse(img, center, axes, angle_deg, color):
-    """A filled ellipse of half-axes ``axes`` rotated by ``angle_deg``."""
-    (cx, cy), (ax, ay) = center, (max(axes[0], 0.5), max(axes[1], 0.5))
-    r = max(ax, ay)
-    win = _window(img, cx - r, cy - r, cx + r, cy + r)
-    if win is None:
-        return
-    sl, px, py = win
-    a = np.deg2rad(angle_deg)
-    u = (px - cx) * np.cos(a) + (py - cy) * np.sin(a)
-    v = -(px - cx) * np.sin(a) + (py - cy) * np.cos(a)
-    img[sl][(u / ax) ** 2 + (v / ay) ** 2 <= 1.0] = color
+    """cv2.ellipse(..., thickness=-1): the polygon of ellipse2Poly (a vertex
+    every 5 degrees for half-axes of 15 px or more, the rotation rounded to
+    a whole degree), filled."""
+    (cx, cy), (ax, ay) = center, axes
+    largest = max(ax, ay)
+    delta = 90 if largest < 3 else 30 if largest < 10 else 18 if largest < 15 else 5
+    a = np.deg2rad(int(np.round(angle_deg)) % 360)
+    t = np.deg2rad(np.minimum(np.arange(0, 360 + delta, delta), 360))
+    x, y = ax * np.cos(t), ay * np.sin(t)
+    fill_polygon(img, np.stack([cx + x * np.cos(a) - y * np.sin(a),
+                                cy + x * np.sin(a) + y * np.cos(a)], -1), color)
 
 
 def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],

@@ -6,8 +6,10 @@ tests/test_trained_quality.py::test_trained_flagship_refined_quality."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .geometry.homography import homography_corner_error, warp_points
 from .models import build_model
 from .models.matchers.lightglue import LightGlue
 from .robust_estimators import load_estimator
@@ -16,6 +18,9 @@ from .utils.weights import load_blob_into
 
 FLAGSHIP_WEIGHTS = WEIGHTS_PATH / "lg_tpu_stage2.f16.msgpack"
 RANSAC_CONF = {"ransac_th": 3.0, "num_hypotheses": 512, "lo_iters": 4}
+# the JAX gate's bounds on the medians over its 6 pairs
+# (tests/test_trained_quality.py::test_trained_flagship_refined_quality)
+GATE = {"matches": 150, "prec1": 0.35, "prec3": 0.6, "h_err": 1.5}
 
 
 def flagship_conf(attention: str = "auto") -> dict:
@@ -66,3 +71,25 @@ def estimate_homography(pred: dict, estimator, i: int = 0) -> dict:
     if mk0.shape[0] < 4:
         mk0 = mk1 = torch.zeros(4, 2, device=mk0.device)
     return estimator({"m_kpts0": mk0, "m_kpts1": mk1})
+
+
+def pair_quality(pred: dict, H_gt: torch.Tensor, image_size: torch.Tensor, estimator,
+                 i: int = 0) -> dict:
+    """The JAX gate's readings of one pair: matches, the share of matches
+    within 1 and 3 px of where ``H_gt`` puts them, and the corner error of
+    the RANSAC homography over the image of size ``image_size`` (w, h)."""
+    mk0, mk1 = matched_keypoints(pred, i)
+    err = torch.linalg.vector_norm(warp_points(mk0, H_gt) - mk1, dim=-1)
+    n = int(mk0.shape[0])
+    out = estimate_homography(pred, estimator, i)
+    return {"matches": n,
+            "prec1": float((err < 1).float().mean()) if n else 0.0,
+            "prec3": float((err < 3).float().mean()) if n else 0.0,
+            "h_err": float(homography_corner_error(out["M_0to1"], H_gt, image_size))}
+
+
+def passes_gate(stats: dict[str, list]) -> bool:
+    """The medians of ``pair_quality`` readings against ``GATE``."""
+    med = {k: float(np.median(v)) for k, v in stats.items()}
+    return (med["matches"] > GATE["matches"] and med["prec1"] > GATE["prec1"]
+            and med["prec3"] > GATE["prec3"] and med["h_err"] < GATE["h_err"])

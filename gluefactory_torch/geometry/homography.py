@@ -1,12 +1,15 @@
 """Batched homography solving, warping and errors
 (gluefactory_tpu/geometry/homography.py). The DLT solve is the weighted,
 Hartley-normalized 8-point system reduced to a 9x9 symmetric eigenproblem,
-so one batched ``eigh`` solves every hypothesis of a RANSAC at once."""
+so one batched ``eigh`` solves every hypothesis of a RANSAC at once.
+``sample_homography_corners`` draws the benchmark renderer's homographies on
+the host, in numpy."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .utils import from_homogeneous, to_homogeneous
@@ -153,3 +156,81 @@ def sample_homography_batch(generator: torch.Generator, batch: int, shape, patch
     ``homography_from_draws`` for the arguments)."""
     return homography_from_draws(homography_draws(generator, batch), shape, patch_shape,
                                  **kwargs)
+
+
+# --- host-side random homographies (the benchmark renderer) ---------------------
+
+def _cross2d(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+
+
+def _convex_np(quad: np.ndarray) -> bool:
+    d = np.roll(quad, -1, axis=0) - quad
+    cross = _cross2d(d, np.roll(d, -1, axis=0))
+    return bool(np.all(cross > 0) or np.all(cross < 0))
+
+
+def _min_convexity(quad: np.ndarray) -> float:
+    d = np.roll(quad, -1, axis=0) - quad
+    cross = np.abs(_cross2d(d, np.roll(d, -1, axis=0)))
+    norms = np.linalg.norm(d, axis=-1)
+    return float(np.min(cross / (norms * np.roll(norms, -1) + 1e-8)))
+
+
+def compute_homography_np(pts0: np.ndarray, pts1: np.ndarray) -> np.ndarray:
+    """Exact DLT from >= 4 correspondences, in float64 on the host (float32 out)."""
+    pts0 = np.asarray(pts0, np.float64)
+    pts1 = np.asarray(pts1, np.float64)
+    n = pts0.shape[0]
+    x0, y0 = pts0[:, 0], pts0[:, 1]
+    x1, y1 = pts1[:, 0], pts1[:, 1]
+    z, o = np.zeros(n), np.ones(n)
+    r1 = np.stack([-x0, -y0, -o, z, z, z, x1 * x0, x1 * y0, x1], axis=-1)
+    r2 = np.stack([z, z, z, -x0, -y0, -o, y1 * x0, y1 * y0, y1], axis=-1)
+    _, _, vt = np.linalg.svd(np.concatenate([r1, r2], axis=0))
+    H = vt[-1].reshape(3, 3)
+    return (H / (H[2, 2] + 1e-12)).astype(np.float32)
+
+
+def sample_homography_corners(shape: tuple, patch_shape: tuple, difficulty: float = 0.8,
+                              translation: float = 0.3, max_angle: float = 60.0,
+                              n_angles: int = 10, min_convexity: float = 0.05,
+                              rng: np.random.Generator | None = None
+                              ) -> tuple[np.ndarray, np.ndarray]:
+    """A random homography from image pixels (w, h = ``shape``) to a patch
+    (``patch_shape``) (gluefactory_tpu/geometry/homography.py:34): the unit
+    square's corners perturbed (up to 20 tries for a convex quad), rotated by
+    one of ``n_angles`` angles that keeps it in bounds, and translated. It
+    makes the numpy draws of the JAX function in the same order, so a
+    generator in the same state gives the same homography.
+    Returns (H (3, 3) float32, the source quad (4, 2) float32)."""
+    rng = rng or np.random.default_rng()
+    w, h = shape
+    pw, ph = patch_shape
+    base = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    center = np.array([0.5, 0.5])
+    amp = 0.5 * difficulty
+    for _ in range(20):
+        quad = base + rng.uniform(-amp, amp, size=(4, 2)) * np.abs(base - center) * 2.0
+        quad = center + (quad - center) * (1.0 - amp * rng.uniform(0.0, 1.0, size=(4, 1)))
+        quad = np.clip(quad, 0.0, 1.0)
+        if _convex_np(quad) and _min_convexity(quad) > min_convexity:
+            break
+    else:
+        quad = base.copy()
+    angles = np.linspace(-np.deg2rad(max_angle), np.deg2rad(max_angle), n_angles)
+    rng.shuffle(angles)
+    angles = np.concatenate([[0.0], angles])
+    for ang in angles[::-1]:  # the shuffled angles first, 0 last
+        ca, sa = np.cos(ang), np.sin(ang)
+        rot = (quad - center) @ np.array([[ca, -sa], [sa, ca]]).T + center
+        if rot.min() >= 0.0 and rot.max() <= 1.0:
+            quad = rot
+            break
+    mn, mx = quad.min(axis=0), quad.max(axis=0)
+    lo, hi = -np.minimum(mn, 1.0), np.maximum(1.0 - mx, 0.0)
+    hi = np.maximum(hi, lo)
+    quad = quad + rng.uniform(lo, hi) * translation
+    coords = quad * np.array([w, h])
+    H = compute_homography_np(coords, base * np.array([pw, ph]))
+    return H.astype(np.float32), coords.astype(np.float32)

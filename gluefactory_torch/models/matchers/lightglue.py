@@ -135,6 +135,16 @@ class TokenConfidence(nn.Module):
         return self.token(desc0)[..., 0], self.token(desc1)[..., 0]
 
 
+def confidence_targets(scores: torch.Tensor, final_scores: torch.Tensor):
+    """The targets of the token-confidence loss of one layer: whether each
+    token's best match (argmax of its row, side 0, or column, side 1) under
+    the layer's assignment ``scores`` is the one under the final layer's.
+    Returns two bool tensors, (B, M) and (B, N). A near-tie in either
+    argmax flips a target under any change in the last bits."""
+    return (scores.argmax(dim=2) == final_scores.argmax(dim=2),
+            scores.argmax(dim=1) == final_scores.argmax(dim=1))
+
+
 class LightGlue(BaseModel):
     default_conf: ClassVar[dict] = {
         "input_dim": 256,
@@ -237,8 +247,7 @@ class LightGlue(BaseModel):
                 losses.update(nll_pos=nll_pos, nll_neg=nll_neg, assignment_nll=nll)
                 continue
             c0, c1 = self.token_confidence[i](desc0.detach(), desc1.detach())
-            correct0 = (scores.argmax(dim=2) == final_scores.argmax(dim=2)).float()
-            correct1 = (scores.argmax(dim=1) == final_scores.argmax(dim=1)).float()
+            correct0, correct1 = (t.float() for t in confidence_targets(scores, final_scores))
             for c, correct, mask in ((c0, correct0, mask0), (c1, correct1, mask1)):
                 bce = -(correct * torch.log(c + 1e-8)
                         + (1 - correct) * torch.log(1 - c + 1e-8))
@@ -250,6 +259,21 @@ class LightGlue(BaseModel):
         losses["confidence"] = conf_loss / max(n_layers - 1, 1)
         losses["total"] = total / sum_weight + losses["confidence"]
         return losses, matcher_metrics(pred, data)
+
+    @torch.no_grad()
+    def layer_confidence_targets(self, pred: dict, data: dict) -> list[torch.Tensor]:
+        """The token-confidence targets that ``loss`` reads, for every layer
+        but the last and both sides (a list of (B, N) bool, False on invalid
+        keypoints): [layer 0 side 0, layer 0 side 1, layer 1 side 0, ...]."""
+        mask0, mask1 = data.get("keypoint_valid0"), data.get("keypoint_valid1")
+        out = []
+        for i in range(self.conf["n_layers"] - 1):
+            scores = self.log_assignment[i](pred["desc_layers0"][i], pred["desc_layers1"][i],
+                                            mask0, mask1)[0]
+            for target, mask in zip(confidence_targets(scores, pred["log_assignment"]),
+                                    (mask0, mask1)):
+                out.append(target if mask is None else target & mask)
+        return out
 
 
 __main_model__ = LightGlue

@@ -4,7 +4,8 @@ in gluefactory_tpu/scripts/pallas_probe.py).
 ``add_plain`` is the plain PyTorch version; ``add_cuda`` checks its inputs and
 launches the hand-written kernel of ``csrc/elementwise.cu`` on CUDA tensors,
 counting each launch in ``launches``. Given CPU tensors it runs the plain
-version instead.
+version instead. ``launch_empty`` launches a kernel that does nothing, whose
+time is the floor under any launch.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ def _library() -> ctypes.CDLL:
         p = ctypes.c_void_p
         lib.gf_add_f32.argtypes = [p, p, p, ctypes.c_longlong, p]
         lib.gf_add_f32.restype = ctypes.c_int
+        lib.gf_launch_empty.argtypes = [ctypes.c_void_p]
+        lib.gf_launch_empty.restype = ctypes.c_int
     return lib
 
 
@@ -62,3 +65,11 @@ def add_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"CUDA kernel add failed to launch: error {rc}")
     launches["add"] += 1
     return out
+
+
+def launch_empty(device: torch.device) -> None:
+    """Launch the empty kernel on ``device``'s current stream."""
+    with torch.cuda.device(device):
+        rc = _library().gf_launch_empty(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel empty failed to launch: error {rc}")

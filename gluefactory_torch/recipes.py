@@ -57,3 +57,36 @@ def stage2_conf() -> dict:
     on-device homography engine. Its ``load_experiment`` is not committed;
     start from ``STAGE2_WEIGHTS`` instead."""
     return copy.deepcopy(_STAGE2)
+
+
+_HPATCHES_FLAGSHIP = {  # outputs/results/hpatches/sp0b_lg2_com_refine/conf.yaml
+    "data": {
+        "name": "hpatches",
+        "test_batch_size": 1,
+        "num_workers": 2,
+        "preprocessing": {"resize": 480, "side": "long", "square_pad": True},
+    },
+    "model": {
+        "name": "two_view_pipeline",
+        "extractor": {"name": "extractors.superpoint", "max_num_keypoints": 1024,
+                      "detection_threshold": 0.005, "refinement_radius": 2,
+                      "refinement_mode": "com"},
+        "matcher": {"name": "matchers.lightglue", "filter_threshold": 0.1,
+                    "depth_confidence": -1, "width_confidence": -1,
+                    "save_layer_outputs": False, "checkpointed": False, "n_layers": 6},
+        "ground_truth": {"name": None},
+        "run_gt_in_forward": False,
+        "filter": {"name": "matchers.match_refiner"},
+    },
+    "eval": {"estimator": "ransac", "ransac_th": -1.0, "num_hypotheses": 1024},
+    "checkpoint": "weights/lg_tpu_stage2.f16.msgpack",
+}
+
+
+def hpatches_flagship_conf() -> dict:
+    """The flagship on the HPatches benchmark at 1024 keypoints, the conf of
+    the published famA/famB numbers: SuperPoint with the CoM readout, 6-layer
+    LightGlue, the ZNCC refiner (window mode off the TPU), RANSAC swept over 6
+    thresholds with 1024 hypotheses each. ``checkpoint`` is relative to the
+    repository root. famB sets ``data.data_dir`` to its own set."""
+    return copy.deepcopy(_HPATCHES_FLAGSHIP)

@@ -1,0 +1,316 @@
+"""Image files and the image operations of the benchmark path, in numpy
+(gluefactory_tpu/utils/image.py). The JAX package does these with OpenCV,
+which the GPU machine does not have; each function here reproduces the OpenCV
+call it replaces (named in its docstring) on float32 or uint8 images:
+
+- binary PPM/PGM files (P6/P5, maxval 255), read as RGB like
+  ``cv2.imread`` + ``cvtColor(BGR2RGB)``;
+- ``resize``: INTER_AREA (fractional area weights), INTER_LINEAR (half-pixel
+  centres) and INTER_CUBIC (a = -0.75, border replicate), as separable
+  float64 weight matrices;
+- ``gaussian_blur``: ``GaussianBlur`` with the sigma OpenCV derives from the
+  kernel size and BORDER_REFLECT_101;
+- ``warp_perspective``: ``warpPerspective`` with INTER_LINEAR and a
+  constant-0 border on uint8 (within one level of OpenCV's rounding).
+
+``ImagePreprocessor`` resizes and pads an image onto a static canvas and
+returns the transform that maps original pixels onto it."""
+
+from __future__ import annotations
+
+import functools
+from pathlib import Path
+
+import numpy as np
+
+from ..core.config import merge
+
+# --- files ---------------------------------------------------------------------
+
+
+def _pnm_header(data: bytes) -> tuple[str, list[int], int]:
+    """(magic, [width, height, maxval], offset of the pixels); skips comments."""
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end].decode("ascii"))
+        pos = end
+    return fields[0], [int(f) for f in fields[1:]], pos + 1  # one whitespace byte
+
+
+def read_image(path: str | Path, grayscale: bool = False) -> np.ndarray:
+    """A binary PPM (P6) or PGM (P5) file as uint8 RGB (H, W, 3), or (H, W)
+    when ``grayscale`` (OpenCV's BGR-to-gray weights on a colour file)."""
+    data = Path(path).read_bytes()
+    magic, (w, h, maxval), offset = _pnm_header(data)
+    if magic not in ("P5", "P6") or maxval != 255:
+        raise IOError(f"Could not read image at {path}: not an 8-bit binary PPM/PGM")
+    channels = 3 if magic == "P6" else 1
+    image = np.frombuffer(data, np.uint8, h * w * channels, offset).reshape(h, w, channels)
+    if grayscale:
+        if channels == 1:
+            return image[..., 0].copy()
+        r, g, b = (image[..., i].astype(np.int32) for i in range(3))
+        return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(np.uint8)
+    return np.repeat(image, 3, axis=-1) if channels == 1 else image.copy()
+
+
+def write_image(path: str | Path, image: np.ndarray) -> None:
+    """uint8 RGB (H, W, 3) as P6, or (H, W) as P5, as ``cv2.imwrite`` of the
+    BGR image writes them."""
+    image = np.ascontiguousarray(image, np.uint8)
+    magic = "P6" if image.ndim == 3 else "P5"
+    header = f"{magic}\n{image.shape[1]} {image.shape[0]}\n255\n".encode("ascii")
+    Path(path).write_bytes(header + image.tobytes())
+
+
+def numpy_image_to_float(image: np.ndarray) -> np.ndarray:
+    """uint8 HWC/HW -> float32 HWC in [0, 1]."""
+    if image.ndim == 2:
+        image = image[..., None]
+    if image.dtype == np.uint8:
+        image = image.astype(np.float32) / 255.0
+    return image.astype(np.float32)
+
+
+# --- resampling ------------------------------------------------------------------
+
+
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """INTER_AREA for a downscale: each output pixel averages the input
+    pixels its footprint covers, the partly covered ones by their share."""
+    scale = src / dst
+    weights = np.zeros((dst, src))
+    for d in range(dst):
+        f0 = d * scale
+        f1 = f0 + scale
+        s0, s1 = int(np.ceil(f0)), int(np.floor(f1))
+        cell = min(scale, src - f0)
+        if s0 - f0 > 1e-3:
+            weights[d, s0 - 1] = (s0 - f0) / cell
+        weights[d, s0:s1] = 1.0 / cell
+        if f1 - s1 > 1e-3 and s1 < src:
+            weights[d, s1] = min(f1 - s1, 1.0, cell) / cell
+    return weights
+
+
+def _linear_weights(src: int, dst: int) -> np.ndarray:
+    """INTER_LINEAR: half-pixel centres, clamped at the border."""
+    weights = np.zeros((dst, src))
+    for d in range(dst):
+        f = (d + 0.5) * src / dst - 0.5
+        s = int(np.floor(f))
+        f -= s
+        if s < 0:
+            s, f = 0, 0.0
+        if s >= src - 1:
+            s, f = src - 1, 0.0
+        weights[d, s] += 1.0 - f
+        if f:
+            weights[d, s + 1] += f
+    return weights
+
+
+def _cubic_weights(src: int, dst: int, a: float = -0.75) -> np.ndarray:
+    """INTER_CUBIC: Keys' kernel with a = -0.75 on 4 taps, taps past the
+    border replicate the edge pixel."""
+    weights = np.zeros((dst, src))
+    for d in range(dst):
+        f = (d + 0.5) * src / dst - 0.5
+        s = int(np.floor(f))
+        x = f - s
+        c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+        c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+        c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+        for tap, c in zip(range(s - 1, s + 3), (c0, c1, c2, 1.0 - c0 - c1 - c2)):
+            weights[d, min(max(tap, 0), src - 1)] += c
+    return weights
+
+
+_WEIGHTS = {"area": _area_weights, "linear": _linear_weights, "cubic": _cubic_weights}
+
+
+@functools.lru_cache(maxsize=64)
+def _operator(kind: str, src: int, dst: int) -> tuple[np.ndarray | None, np.ndarray]:
+    """A filter along one axis, from ``src`` to ``dst`` samples, built once
+    for each size (a benchmark resizes every image alike): a resize ('area',
+    'linear', 'cubic') as (columns, weights) of the few taps of each output
+    sample; a Gaussian blur ('gaussian<ksize>') as (None, its dense matrix).
+    The arrays are read-only: every caller shares them."""
+    if kind.startswith("gaussian"):
+        out = (None, _reflect101_filter(src, _gaussian_kernel(int(kind[8:]))))
+    else:
+        weights = _WEIGHTS[kind](src, dst)
+        taps = int((weights != 0).sum(1).max())
+        cols = np.zeros((dst, taps), np.int64)
+        vals = np.zeros((dst, taps))
+        for i, row in enumerate(weights):
+            nz = np.flatnonzero(row)
+            cols[i, :len(nz)], vals[i, :len(nz)] = nz, row[nz]
+        out = (cols, vals)
+    for array in out:
+        if array is not None:
+            array.flags.writeable = False
+    return out
+
+
+def _apply(kind: str, x: np.ndarray, axis: int, dst: int) -> np.ndarray:
+    """The ``kind`` filter along ``axis`` of ``x``, to ``dst`` samples."""
+    cols, vals = _operator(kind, x.shape[axis], dst)
+    x = np.moveaxis(x, axis, 0)
+    if cols is None:
+        out = np.tensordot(vals, x, axes=(1, 0))
+    else:
+        out = sum(vals[:, k].reshape((-1,) + (1,) * (x.ndim - 1)) * x[cols[:, k]]
+                  for k in range(cols.shape[1]))
+    return np.moveaxis(out, 0, axis)
+
+
+def _separable(image: np.ndarray, kind: str, size: tuple[int, int]) -> np.ndarray:
+    """The ``kind`` filter along rows and columns of each channel, in float64,
+    float32 out; ``size`` is (w, h) out."""
+    x = _apply(kind, np.asarray(image, np.float64), 0, size[1])
+    return _apply(kind, x, 1, size[0]).astype(np.float32)
+
+
+def resize(image: np.ndarray, size: tuple[int, int], interpolation: str) -> np.ndarray:
+    """``cv2.resize(image, size, interpolation=INTER_AREA | INTER_LINEAR |
+    INTER_CUBIC)`` of a float image (H, W) or (H, W, C); ``size`` is (w, h).
+    'area' is for downscaling, as the preprocessor uses it."""
+    return _separable(image, interpolation, size)
+
+
+def _gaussian_kernel(ksize: int) -> np.ndarray:
+    """``cv2.getGaussianKernel(ksize, 0)``: the fixed small kernels up to 7
+    taps, else sigma = 0.3 * ((ksize - 1) / 2 - 1) + 0.8."""
+    small = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+             7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125]}
+    if ksize in small:
+        return np.array(small[ksize])
+    sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize) - (ksize - 1) / 2
+    kernel = np.exp(-x * x / (2 * sigma * sigma))
+    return kernel / kernel.sum()
+
+
+def _reflect101_filter(n: int, kernel: np.ndarray) -> np.ndarray:
+    """The (n, n) matrix of a 1-D filter with BORDER_REFLECT_101 (dcb|abcd|cba)."""
+    r = len(kernel) // 2
+    taps = np.arange(n)[:, None] + np.arange(-r, r + 1)[None]
+    period = 2 * (n - 1) if n > 1 else 1
+    taps = np.abs(taps) % period
+    taps = np.where(taps >= n, period - taps, taps)
+    matrix = np.zeros((n, n))
+    np.add.at(matrix, (np.repeat(np.arange(n), len(kernel)), taps.ravel()),
+              np.tile(kernel, n))
+    return matrix
+
+
+def gaussian_blur(image: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.GaussianBlur(image, (ksize, ksize), 0)`` of a float image."""
+    return _separable(image, f"gaussian{ksize}", (image.shape[1], image.shape[0]))
+
+
+def warp_perspective(image: np.ndarray, H: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``cv2.warpPerspective(image, H, size, flags=INTER_LINEAR)`` of a uint8
+    image (H, W) or (H, W, C): out(x) = image(H^-1 x) for integer pixel
+    coordinates x, bilinear, 0 outside the source; ``size`` is (w, h)."""
+    w, h = size
+    src_h, src_w = image.shape[:2]
+    M = np.linalg.inv(np.asarray(H, np.float64))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    den = M[2, 0] * xs + M[2, 1] * ys + M[2, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        X = (M[0, 0] * xs + M[0, 1] * ys + M[0, 2]) / den
+        Y = (M[1, 0] * xs + M[1, 1] * ys + M[1, 2]) / den
+    inside = np.isfinite(X) & np.isfinite(Y) & (np.abs(X) < 1e6) & (np.abs(Y) < 1e6)
+    X, Y = np.where(inside, X, -10.0), np.where(inside, Y, -10.0)
+    x0, y0 = np.floor(X), np.floor(Y)
+    fx, fy = (X - x0)[..., None], (Y - y0)[..., None]
+    # a zero border of 2 pixels: a tap clamped into it reads 0, as OpenCV's
+    # constant border gives
+    stride = src_w + 4
+    padded = np.zeros((src_h + 4, stride, image.size // (src_h * src_w)), np.uint8)
+    padded[2:-2, 2:-2] = image.reshape(src_h, src_w, -1)
+    flat = padded.reshape(-1, padded.shape[-1])
+    idx = ((np.clip(y0, -2, src_h).astype(np.int64) + 2) * stride
+           + np.clip(x0, -2, src_w).astype(np.int64) + 2)
+    top = flat[idx] * (1 - fx) + flat[idx + 1] * fx
+    bottom = flat[idx + stride] * (1 - fx) + flat[idx + stride + 1] * fx
+    out = np.clip(np.rint(top * (1 - fy) + bottom * fy), 0, 255).astype(np.uint8)
+    return out.reshape((h, w) + image.shape[2:])
+
+
+# --- preprocessing ----------------------------------------------------------------
+
+
+class ImagePreprocessor:
+    """Resize keeping the aspect ratio, then pad onto a static canvas.
+
+    Returns numpy arrays:
+      image       (H', W', C) float32, zero-padded
+      image_size  (2,) float32, the valid (w, h) inside the canvas
+      orig_size   (2,) float32, the original (w, h)
+      scales      (2,) float32, the (sx, sy) of the resize
+      transform   (3, 3) float32, original pixel coordinates -> canvas
+      valid_mask  (H', W') bool, True on image pixels
+    """
+
+    default_conf = {
+        "resize": None,  # target size (int) or None
+        "edge_divisible_by": None,
+        "side": "long",  # resize so this side == resize: short | long | vert | horz
+        "interpolation": "bilinear",
+        "align_corners": None,
+        "antialias": True,
+        "square_pad": True,  # pad to a (resize, resize) canvas
+        "add_padding_mask": True,
+        "grayscale": False,
+    }
+
+    def __init__(self, conf: dict | None = None):
+        self.conf = merge(self.default_conf, conf)
+
+    def __call__(self, image: np.ndarray) -> dict:
+        conf = self.conf
+        image = numpy_image_to_float(image)
+        h, w = image.shape[:2]
+        sx = sy = 1.0
+        if conf["resize"] is not None:
+            target = int(conf["resize"])
+            scale = {"short": target / min(h, w), "long": target / max(h, w),
+                     "vert": target / h}.get(conf["side"], target / w)
+            nw, nh = max(1, round(w * scale)), max(1, round(h * scale))
+            if conf["edge_divisible_by"]:
+                d = int(conf["edge_divisible_by"])
+                nw, nh = (nw // d) * d, (nh // d) * d
+            mode = "area" if (scale < 1 and conf["antialias"]) else "linear"
+            image = resize(image, (nw, nh), mode)
+            sx, sy = nw / w, nh / h
+        nh, nw = image.shape[:2]
+        if conf["square_pad"] and conf["resize"] is not None:
+            ch = cw = int(conf["resize"])
+        else:
+            ch, cw = nh, nw
+        padded = np.zeros((ch, cw, image.shape[2]), dtype=np.float32)
+        padded[:nh, :nw] = image[:ch, :cw]
+        valid = np.zeros((ch, cw), dtype=bool)
+        valid[:min(nh, ch), :min(nw, cw)] = True
+        if conf["grayscale"] and padded.shape[2] == 3:
+            padded = padded.mean(axis=2, keepdims=True)
+        return {
+            "image": padded,
+            "image_size": np.array([min(nw, cw), min(nh, ch)], dtype=np.float32),
+            "orig_size": np.array([w, h], dtype=np.float32),
+            "scales": np.array([sx, sy], dtype=np.float32),
+            "transform": np.array([[sx, 0.0, 0.0], [0.0, sy, 0.0], [0.0, 0.0, 1.0]],
+                                  dtype=np.float32),
+            "valid_mask": valid,
+        }

@@ -118,6 +118,9 @@ def test_add_kernel_is_bit_exact(device):
         E.add_cuda(cases[0][0].double(), cases[0][1].double())
     with pytest.raises(ValueError, match="shapes"):
         E.add_cuda(cases[0][0], cases[1][1])
+    E.launch_empty(buf.device)  # the launch floor of phase 5: launches, counts nothing
+    torch.cuda.synchronize()
+    assert E.launches["add"] == before + len(cases)
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-4),

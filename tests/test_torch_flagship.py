@@ -16,13 +16,17 @@ from gluefactory_tpu.utils.experiments import restore_from_flat_dict
 from gluefactory_tpu.utils.image import read_image
 from gluefactory_torch.flagship import (
     FLAGSHIP_WEIGHTS,
+    GATE,
     RANSAC_CONF,
     flagship_conf,
     load_flagship,
     matched_keypoints,
+    pair_quality,
+    passes_gate,
 )
 from gluefactory_torch.geometry.homography import homography_corner_error
 from gluefactory_torch.models.matchers.match_refiner import MatchRefiner
+from test_trained_quality import render_pairs
 
 torch.set_num_threads(2)
 
@@ -105,3 +109,22 @@ def test_flagship_matches_jax(tmp_path):
     # and the port's own pipeline and RANSAC recover the true homography
     own = estimator(dict(zip(("m_kpts0", "m_kpts1"), matched_keypoints(pred))))
     assert float(homography_corner_error(own["M_0to1"], torch.from_numpy(H_gt), wh)) < 1.5
+
+
+def test_flagship_passes_the_jax_gate(tmp_path):
+    """The JAX flagship gate (tests/test_trained_quality.py::
+    test_trained_flagship_refined_quality) on the port: its 6 pairs, its
+    RANSAC, its four bounds on the medians."""
+    assert GATE == {"matches": 150, "prec1": 0.35, "prec3": 0.6, "h_err": 1.5}
+    model, estimator = load_flagship(device="cpu")
+    stats = {k: [] for k in GATE}
+    for img0, img1, H in render_pairs(tmp_path):
+        size = torch.tensor([[img0.shape[1], img0.shape[0]]], dtype=torch.float32)
+        data = {"view0": {"image": torch.from_numpy(img0)[None], "image_size": size},
+                "view1": {"image": torch.from_numpy(img1)[None], "image_size": size}}
+        with torch.inference_mode():
+            quality = pair_quality(model(data), torch.from_numpy(H), size[0], estimator)
+        for k in GATE:
+            stats[k].append(quality[k])
+    assert len(stats["matches"]) == 6
+    assert passes_gate(stats), stats

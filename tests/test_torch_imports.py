@@ -37,10 +37,26 @@ conf = {{
 }}
 model = build_model("two_view_pipeline", conf, device="cpu")
 estimator = load_estimator("homography", "ransac")({{"num_hypotheses": 64}})
-img0, img1, H = chip_smoke.make_pairs(1, 128, 96, "cpu")[0]
-pred, out, err = chip_smoke.run_pair(model, estimator, img0, img1, H)
-assert pred["keypoints1"].shape == (1, 48, 2) and pred["matches0"].shape == (1, 48)
-assert bool(torch.isfinite(pred["keypoints1"]).all()) and out["M_0to1"].shape == (3, 3)
+import tempfile
+from pathlib import Path
+
+with tempfile.TemporaryDirectory() as tmp:
+    img0, img1, H = chip_smoke.gate_pairs(Path(tmp) / "gate", "cpu")[0]
+    pred, quality = chip_smoke.run_pair(model, estimator, img0, img1, H)
+    assert pred["keypoints1"].shape == (1, 48, 2) and pred["matches0"].shape == (1, 48)
+    assert bool(torch.isfinite(pred["keypoints1"]).all()) and quality["h_err"] >= 0
+
+    # the benchmark entry point, on a set rendered by the port
+    from gluefactory_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_torch.scripts.generate_eval_set import generate
+
+    generate(Path(tmp) / "hp", 1, (128, 96), 0, family="b", illum_seqs=1)
+    bench = HPatchesPipeline({{"data": {{"data_dir": str(Path(tmp) / "hp"),
+                                         "preprocessing": {{"resize": 128}}}},
+                               "model": {{**conf, "name": "two_view_pipeline"}},
+                               "eval": {{"num_hypotheses": 64}}}}, device="cpu")
+    summaries, results = bench.run(Path(tmp) / "eval", model=model)
+    assert len(results["names"]) == 10 and "H_error_ransac_mAA_i" in summaries, summaries
 from gluefactory_torch.train import training
 
 tconf = {{"data": {{"name": "homographies_ondevice", "pool_size": 2, "source_size": [96, 96],

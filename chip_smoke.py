@@ -16,7 +16,9 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      (32x4x512x64) and probe (8x4x1024x64) shapes beside the plain version,
      PyTorch's scaled_dot_product_attention and the card's bounds (3xTF32 on
      the tensor cores, f32 on the CUDA cores), with the plan
-     (ops.attention.plan_attention) of each shape;
+     (ops.attention.plan_attention) of each shape; and in bfloat16 at the
+     stage-5 training (32x4x512x64) and benchmark (1x4x1024x64) shapes beside
+     SDPA in bfloat16 and the bf16 bound (989 TFLOP/s, or bytes);
   4. flagship: SuperPoint -> LightGlue -> ZNCC refiner -> LO-RANSAC with the
      committed lg_tpu_stage2 weights on the JAX gate's 6 pairs (480x360,
      rendered by the port's generate_eval_set); every LightGlue attention
@@ -36,7 +38,13 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      sequences) rendered by the port, then the benchmark entry point
      (eval.hpatches.HPatchesPipeline) with the flagship at 1024 keypoints
      through the kernels; summaries held to the JAX package's on the same
-     sets, pair latency, pairs per second and RANSAC sweep time printed.
+     sets, pair latency, pairs per second and RANSAC sweep time printed;
+  9. stage 5: the recipe superpoint+lightglue_stage5_r4 (recipes.stage5_conf,
+     SuperPoint and LightGlue in bf16, from weights/lg5_init_spsoft): its
+     benchmark overlay on famA's first 8 sequences held to the JAX package's
+     bf16 numbers, then train.training cut to 2 epochs of 4 steps with an
+     evaluation, a benchmark and a checkpoint at each epoch end, and a
+     --restore (see check_stage5).
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Only torch and numpy are needed besides the repository.
@@ -53,6 +61,7 @@ from pathlib import Path
 T0 = time.perf_counter()
 H100_F32_FLOPS = 67e12  # dense float32 outside the tensor cores (data sheet)
 H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores; 3xTF32 does 3 passes
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 SEED = 20260417
 
@@ -262,6 +271,7 @@ def errors(out, ref) -> dict:
 
 
 EXACT_SHAPE = (32, 4, 512, 512, 64)  # the training shape, float32
+BF16_SHAPES = ((32, 4, 512, 64), (1, 4, 1024, 64))  # stage-5 training, the benchmark
 
 
 def check_kernels(device):
@@ -359,6 +369,30 @@ def check_kernels(device):
                 f"({max(t_tf32, t_bytes) / ms:.1%}) / {t_f32 * 1e3:.2f} us f32 CUDA cores; "
                 f"{nbytes / 1e6:.2f} MB; plan rows {plan.rows}, {plan.splits} split(s) of "
                 f"{plan.tiles_per_split} tiles")
+        times_bf16 = []
+        for b, h, n, d in BF16_SHAPES:
+            args = _attention_inputs(b, h, n, n, d, torch.bfloat16, kern["rotary"], gen, device)
+            q, k, v, mask = args[0], args[1], args[2], args[-1]
+            mask[:] |= mask.sum(-1, keepdim=True) == 0
+            q_lib = A.apply_rotary(q, args[3], args[4]) if kern["rotary"] else q
+            reps = 20 if b == 1 else 5
+            ms = graph_ms(lambda: kern["kernel"](*args), reps=reps)
+            plain_ms = graph_ms(lambda: kern["plain"](*args), reps=reps)
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                q_lib, k, v, attn_mask=mask[:, None, None, :]), reps=reps)
+            nbytes = sum(t.numel() * t.element_size() for t in args) + q.numel() * 2
+            t_ops = 4 * b * h * n * n * d / H100_BF16_FLOPS * 1e3
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            times_bf16.append({"shape": [b, h, n, n, d], "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                               "bound_ms_operations": t_ops})
+            log(f"  {name:17s} bf16 B,H,N,D={b},{h},{n},{d}: kernel {ms * 1e3:.1f} us, plain "
+                f"{plain_ms * 1e3:.1f} us, SDPA bf16 {library_ms * 1e3:.1f} us "
+                f"({library_ms / ms:.2f}x the kernel), bound {max(t_ops, t_bytes) * 1e3:.2f} us "
+                f"({'operations' if t_ops >= t_bytes else 'bytes'}; {t_ops * 1e3:.2f} us of "
+                f"operations at 989 TFLOP/s, {t_bytes * 1e3:.2f} us of {nbytes / 1e6:.2f} MB), "
+                f"{max(t_ops, t_bytes) / ms:.1%} of it")
         main = times[1]  # 1x4x1024x64: the benchmark path's shape, most of the launches
         results.append({
             "name": name, "route": "cuda", "source": "gluefactory_torch/csrc/attention.cu",
@@ -366,6 +400,7 @@ def check_kernels(device):
             "max_abs_err": kern["max_abs_err"], "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "times_by_shape": times,
+            "times_by_shape_bf16": times_bf16,
             "vs_float64": kern["vs_float64"], "plain_vs_float64": kern["plain_vs_float64"],
         })
     return results
@@ -793,6 +828,232 @@ def check_hpatches(device, root: Path):
     return launches, report
 
 
+# --- phase 9: the stage-5 recipe in bf16 ------------------------------------------
+
+# The JAX package's summaries of the stage-5 recipe's benchmark overlay (1024
+# keypoints, the RANSAC sweep, no ground truth in the forward, SuperPoint and
+# LightGlue in bf16) with weights/lg5_init_spsoft on famA's first 8 sequences (40
+# pairs): python -m gluefactory_tpu.eval.hpatches on the CPU, RANSAC seed 0, on the
+# set of gluefactory_torch.scripts.generate_eval_set --num_seqs 8 (PERF.md, section 6)
+STAGE5_BENCH_JAX = {"H_error_ransac_mAA": 37.845, "mprec@1px": 0.136,
+                    "mnum_keypoints": 1024.0, "mnum_matches": 502.9}
+# |port - JAX|: mAA points (JAX's own mAA spans 36.671-37.845 over RANSAC seeds 0-2,
+# and the port's RANSAC stream is another one), precision, and relative keypoint and
+# match counts (as phase 8)
+STAGE5_BENCH_TOLERANCES = {"H_error_ransac_mAA": 3.0, "mprec@1px": 0.02,
+                           "mnum_keypoints": 0.01, "mnum_matches": 0.03}
+# the recipe cut to a few steps: pool 768 -> 64 images, 250 -> 4 steps an epoch,
+# 48 -> 2 epochs, an evaluation and a benchmark at each epoch end, every step logged
+STAGE5_CUTS = {"data": {"pool_size": 64, "steps_per_epoch": 4},
+               "train": {"epochs": 2, "eval_every_iter": 4, "benchmark_every_epoch": 1,
+                         "log_every_iter": 1}}
+# step 0, kernel path against the plain path in bf16: the plain path rounds the
+# rotated q to bf16 where K1 keeps it in float32 (1.3e-4 to 1.2e-3 relative on the
+# CPU at batch 2)
+STAGE5_LOSS_RTOL = 1e-2
+STAGE5_RESTORE_RTOL = 1e-6  # the first step after --restore against the same step
+
+
+def stage5_bench(device, fam_dir: Path, out: Path, dtype: str) -> tuple[dict, float, int]:
+    """The recipe's benchmark overlay with lg5_init_spsoft (strict) in ``dtype``
+    on the first 8 sequences of ``fam_dir``: (summaries, seconds, pairs)."""
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_torch.flagship import load_weights
+    from gluefactory_torch.models import build_model
+    from gluefactory_torch.recipes import STAGE5_WEIGHTS, stage5_conf
+
+    conf = stage5_conf()
+    bench = conf["train"]["run_benchmarks"][0]
+    model_conf = merge(conf["model"], bench["model"])
+    for comp in ("extractor", "matcher"):
+        model_conf[comp]["dtype"] = dtype
+    model = build_model(model_conf["name"], model_conf, device=device)
+    load_weights(model, STAGE5_WEIGHTS)
+    pipeline = HPatchesPipeline(merge(bench["conf"], {"data": {"data_dir": str(fam_dir)}}),
+                                device=device)
+    t = time.perf_counter()
+    summaries, _ = pipeline.run(out, model=model, overwrite=True)
+    return summaries, time.perf_counter() - t, len(pipeline.dataset)
+
+
+class StepWatch:
+    """Within ``with``: every Trainer.step calls ``before(trainer)`` first
+    and records the attention launches it made."""
+
+    def __init__(self, before=None):
+        self.before, self.launches = before, []
+
+    def __enter__(self):
+        from gluefactory_torch import train
+        from gluefactory_torch.ops import attention as A
+
+        self.original = original = train.Trainer.step
+
+        def step(trainer, seed):
+            if self.before is not None:
+                self.before(trainer)
+            counts = dict(A.launches)
+            out = original(trainer, seed)
+            self.launches.append({k: A.launches[k] - counts[k] for k in counts})
+            return out
+
+        train.Trainer.step = step
+        return self
+
+    def __exit__(self, *exc):
+        from gluefactory_torch import train
+
+        train.Trainer.step = self.original
+
+
+def check_stage5(device, fam_dir: Path, root: Path):
+    """(a) The recipe's benchmark overlay in bf16 through the kernels on
+    famA's first 8 sequences, held to the JAX package's summaries
+    (STAGE5_BENCH_TOLERANCES); the float32 numbers printed beside. (b)
+    ``training(stage5 recipe cut by STAGE5_CUTS)`` through the kernels in bf16:
+    step 0 against the plain path, finite losses and no skipped step, 12 + 12
+    launches a step, the train/val/bench keys of metrics.jsonl,
+    checkpoint_best at the epoch of the highest bench mAA, at most 3 other
+    checkpoints, then --restore from the first epoch's checkpoint: parameters
+    and Adam state bit for bit, the next step's loss as the first run's.
+    Returns (the attention launches of the training run, what is printed)."""
+    import argparse
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets import get_dataset
+    from gluefactory_torch.datasets.homographies_ondevice import upload_pool
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import stage5_conf
+    from gluefactory_torch.train import Trainer, training
+    from gluefactory_torch.utils.experiments import state_to_flat_dict
+    from gluefactory_torch.utils.weights import decode_msgpack
+
+    report = {}
+    A.reset_launches()
+    summaries, seconds, n_pairs = stage5_bench(device, fam_dir, root / "bench_bf16", "bf16")
+    counts = dict(A.launches)
+    report["bench_bf16"] = {"seconds": seconds, "pairs": n_pairs, "summaries": summaries}
+    log(f"  (a) bench overlay in bf16: {n_pairs} pairs in {seconds:.1f} s, launches {counts}; "
+        f"{json.dumps(summaries)}")
+    if counts != {"attention_rotary": 12 * n_pairs, "attention": 12 * n_pairs}:
+        raise AssertionError(f"stage-5 bench: kernel launches {counts} for {n_pairs} pairs")
+    f32, f32_seconds, _ = stage5_bench(device, fam_dir, root / "bench_f32", "float32")
+    report["bench_f32"] = {"seconds": f32_seconds, "summaries": f32}
+    failures = []
+    for key, ref in STAGE5_BENCH_JAX.items():
+        tol = STAGE5_BENCH_TOLERANCES[key] * (abs(ref) if key in RELATIVE else 1.0)
+        diff = float(summaries[key]) - ref
+        verdict = "ok" if abs(diff) <= tol else "FAILS"
+        log(f"  (a) {key}: port bf16 {float(summaries[key]):.3f}, JAX bf16 {ref:.3f}, "
+            f"difference {diff:+.3f} (tolerance {tol:.3f}) {verdict}; port float32 "
+            f"{float(f32[key]):.3f} (reading, {f32_seconds:.1f} s)")
+        if verdict != "ok":
+            failures.append(f"{key}: {float(summaries[key])} against {ref}")
+    if failures:
+        raise AssertionError(f"stage-5 benchmark against the JAX package: {failures}")
+
+    conf = merge(stage5_conf(), STAGE5_CUTS)
+    conf["train"]["run_benchmarks"][0]["conf"]["data"]["data_dir"] = str(fam_dir)
+    dataset = get_dataset(conf["data"]["name"])(conf["data"])
+    t = time.perf_counter()
+    pool = upload_pool(dataset.build_pool("train"), device)
+    log(f"  (b) pool of {conf['data']['pool_size']} images on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    seed0 = next(iter(dataset.get_data_loader("train")))
+    loss0 = {}
+    for impl in ("auto", "xla"):
+        impl_conf = merge(conf, {"model": {"matcher": {"attention": impl}}})
+        loss0[impl] = step0(Trainer(impl_conf, device=device, pool=pool), pool, seed0)[0]
+    rel0 = abs(loss0["auto"] - loss0["xla"]) / abs(loss0["xla"])
+    log(f"  (b) step 0 in bf16: loss {loss0['auto']:.6f} on the kernel path, "
+        f"{loss0['xla']:.6f} on the plain path, {rel0:.2g} relative (tolerance "
+        f"{STAGE5_LOSS_RTOL})")
+    if not rel0 <= STAGE5_LOSS_RTOL:
+        raise AssertionError(f"stage-5 step 0: losses differ by {rel0:.3g} relative")
+    torch.cuda.empty_cache()
+
+    run = root / "stage5"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t = time.perf_counter()
+    with StepWatch() as watch:
+        _, history = training(conf, run, device=device, pool=pool)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    if bad or any(h["skipped"] for h in history):
+        raise AssertionError(f"stage-5 steps: non-finite {bad}, skipped "
+                             f"{[h['skipped'] for h in history]}")
+    n_steps = conf["train"]["epochs"] * conf["data"]["steps_per_epoch"]
+    if watch.launches != [{"attention_rotary": 12, "attention": 12}] * n_steps:
+        raise AssertionError(f"stage-5 kernel launches by step: {watch.launches}")
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    keys = set().union(*records)
+    need = {"loss/total", "grad_norm", "lr", "val/loss/total", "val/match_AP",
+            "bench/hpatches/H_error_ransac_mAA", "bench/hpatches/mprec@1px",
+            "bench/hpatches/mnum_keypoints"}
+    if not need <= keys:
+        raise AssertionError(f"metrics.jsonl lacks {sorted(need - keys)}")
+    maa = [r["bench/hpatches/H_error_ransac_mAA"] for r in records
+           if "bench/hpatches/H_error_ransac_mAA" in r]
+    bench_s = [r["bench/hpatches/seconds"] for r in records if "bench/hpatches/seconds" in r]
+    best = decode_msgpack((run / "checkpoint_best.ckpt").read_bytes())
+    others = sorted(p.name for p in run.glob("checkpoint_*.ckpt") if "best" not in p.name)
+    if best["epoch"] != int(np.argmax(maa)) or len(others) > 3:
+        raise AssertionError(f"checkpoint_best of epoch {best['epoch']} for bench mAA {maa}; "
+                             f"kept {others}")
+    step_ms = [h["ms"] for h in history[1:]]
+    report.update(steps=len(history), seconds=seconds, median_step_ms=float(np.median(step_ms)),
+                  peak_gib=peak / 2**30, bench_maa=maa, bench_seconds=bench_s,
+                  best_epoch=int(best["epoch"]), checkpoints=others)
+    log(f"  (b) {len(history)} steps in {seconds:.1f} s (2 evaluations and 2 benchmarks "
+        f"included): losses {[round(h['loss/total'], 4) for h in history]}; median step "
+        f"{report['median_step_ms']:.1f} ms (steps 2-{len(history)}, host clock); peak memory "
+        f"{report['peak_gib']:.2f} GiB; launches {launches}; bench mAA by epoch {maa} in "
+        f"{[round(b, 1) for b in bench_s]} s; checkpoint_best epoch {best['epoch']}; kept "
+        f"{others}")
+
+    resumed = root / "stage5_restored"
+    resumed.mkdir()
+    shutil.copy(run / "checkpoint_0_4.ckpt", resumed)
+    shutil.copy(run / "config.yaml", resumed)
+    saved = decode_msgpack((run / "checkpoint_0_4.ckpt").read_bytes())["state"]
+    compared = []
+
+    def same_as_saved(trainer):
+        if compared:
+            return
+        for part, obj in trainer.state().items():
+            now = state_to_flat_dict(obj)
+            if now.keys() != saved[part].keys():
+                raise AssertionError(f"restored {part}: keys differ from the checkpoint's")
+            for key, value in now.items():
+                ref = saved[part][key]
+                if value.dtype != ref.dtype or not np.array_equal(value, ref):
+                    raise AssertionError(f"restored {part} {key} differs from the checkpoint")
+            compared.append(len(now))
+
+    with StepWatch(same_as_saved):
+        _, again = training(conf, resumed, argparse.Namespace(restore=True), device=device,
+                            pool=pool, steps=1)
+    rel = abs(again[0]["loss/total"] - history[4]["loss/total"]) / abs(history[4]["loss/total"])
+    log(f"  (b) --restore from checkpoint_0_4: {compared[0]} parameters and {compared[1]} "
+        f"optimizer arrays bit for bit; next step's loss {again[0]['loss/total']:.7f} against "
+        f"{history[4]['loss/total']:.7f} in the first run ({rel:.2g} relative, tolerance "
+        f"{STAGE5_RESTORE_RTOL})")
+    if not rel <= STAGE5_RESTORE_RTOL:
+        raise AssertionError(f"restored step: loss differs by {rel:.3g} relative")
+    return launches, report
+
+
 # --- main --------------------------------------------------------------------
 
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
@@ -880,14 +1141,22 @@ def main() -> int:
         log(f"  phase 8 took {seconds:.1f} s: rendering {report['render_s']:.1f} s, "
             f"evaluation {seconds - report['render_s']:.1f} s")
 
+        log("phase 9: the stage-5 recipe in bf16")
+        t = time.perf_counter()
+        stage5_launches, _ = check_stage5(device, Path(tmp) / "hpatches" / "famA",
+                                          Path(tmp) / "stage5")
+        log(f"  phase 9 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
-                             "hpatches": bench_launches["attention_rotary"]},
+                             "hpatches": bench_launches["attention_rotary"],
+                             "stage5": stage5_launches["attention_rotary"]},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
-                      "hpatches": bench_launches["attention"]},
+                      "hpatches": bench_launches["attention"],
+                      "stage5": stage5_launches["attention"]},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

@@ -1,9 +1,11 @@
 """Nested configuration dicts (gluefactory_tpu/core/config.py, without
-OmegaConf): defaults are deep-merged with overrides into plain dicts."""
+OmegaConf): defaults are deep-merged with overrides into plain dicts, and
+command lines give overrides as ``dot.key=value``."""
 
 from __future__ import annotations
 
 import copy
+import json
 
 
 def merge(base: dict, override: dict | None) -> dict:
@@ -18,9 +20,42 @@ def merge(base: dict, override: dict | None) -> dict:
     return out
 
 
+def lookup(conf: dict, dotted: str, missing):
+    """``conf["a"]["b"]`` for ``dotted`` 'a.b', or ``missing`` where a key is absent."""
+    for part in dotted.split("."):
+        if not isinstance(conf, dict) or part not in conf:
+            return missing
+        conf = conf[part]
+    return conf
+
+
 def collect_defaults(cls: type) -> dict:
     """Merge the ``default_conf`` of ``cls`` and of its bases, base first."""
     conf: dict = {}
     for klass in reversed(cls.__mro__):
         conf = merge(conf, klass.__dict__.get("default_conf"))
     return conf
+
+
+def parse_value(text: str):
+    """A dotlist value: JSON where it parses (numbers, true/false/null,
+    lists), else the string itself."""
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return text
+
+
+def dotlist_to_dict(dotlist: list[str]) -> dict:
+    """``["a.b=1", "c=x"]`` -> ``{"a": {"b": 1}, "c": "x"}``."""
+    out: dict = {}
+    for item in dotlist:
+        key, sep, value = item.partition("=")
+        if not sep:
+            raise ValueError(f"expected key=value, got {item!r}")
+        *parents, leaf = key.split(".")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = parse_value(value)
+    return out

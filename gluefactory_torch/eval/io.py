@@ -13,35 +13,11 @@ from pathlib import Path
 
 import torch
 
-from ..core.config import merge
+from ..core.config import dotlist_to_dict, merge
 from ..models import build_model
-from ..models.matchers.lightglue import LightGlue
+from ..models.matchers.lightglue import head_counts
 from ..settings import ROOT_PATH
 from ..utils.weights import load_state_strict, load_weight_blob, params_from_flat
-
-
-def parse_value(text: str):
-    """A dotlist value: JSON where it parses (numbers, true/false/null,
-    lists), else the string itself."""
-    try:
-        return json.loads(text)
-    except json.JSONDecodeError:
-        return text
-
-
-def dotlist_to_dict(dotlist: list[str]) -> dict:
-    """``["a.b=1", "c=x"]`` -> ``{"a": {"b": 1}, "c": "x"}``."""
-    out: dict = {}
-    for item in dotlist:
-        key, sep, value = item.partition("=")
-        if not sep:
-            raise ValueError(f"expected key=value, got {item!r}")
-        *parents, leaf = key.split(".")
-        node = out
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = parse_value(value)
-    return out
 
 
 def parse_eval_args(benchmark: str, args, default_conf: dict, named_conf: dict) -> dict:
@@ -78,8 +54,7 @@ def load_model(model_conf: dict, checkpoint: str | Path | None,
     flat, ckpt_conf, _ = load_weight_blob(resolve_checkpoint(checkpoint))
     model_conf = merge(ckpt_conf or {}, model_conf)
     model = build_model(model_conf["name"], model_conf, device=device)
-    heads = {name: m.conf["num_heads"] for name, m in model.named_modules()
-             if isinstance(m, LightGlue)}
+    heads = head_counts(model)
     load_state_strict(model, params_from_flat(flat, heads))
     return model
 

@@ -11,7 +11,7 @@ import torch
 
 from .geometry.homography import homography_corner_error, warp_points
 from .models import build_model
-from .models.matchers.lightglue import LightGlue
+from .models.matchers.lightglue import head_counts
 from .robust_estimators import load_estimator
 from .settings import WEIGHTS_PATH
 from .utils.weights import load_blob_into
@@ -43,8 +43,7 @@ def flagship_conf(attention: str = "auto") -> dict:
 
 def load_weights(model: torch.nn.Module, path=FLAGSHIP_WEIGHTS) -> dict:
     """Load a committed blob strictly into a pipeline; returns its model_conf."""
-    heads = {name: m.conf["num_heads"] for name, m in model.named_modules()
-             if isinstance(m, LightGlue)}
+    heads = head_counts(model)
     model_conf, _ = load_blob_into(model, path, num_heads=heads)
     return model_conf
 

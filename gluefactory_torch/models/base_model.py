@@ -21,7 +21,7 @@ from typing import ClassVar
 import torch
 from torch import nn
 
-from ..core.config import collect_defaults, merge
+from ..core.config import collect_defaults, lookup, merge
 from ..core.registry import resolve_component
 from ..utils.device import resolve_device
 
@@ -65,14 +65,6 @@ def _leaves(value, prefix: str) -> dict:
     return out
 
 
-def _lookup(conf: dict, dotted: str, missing):
-    for part in dotted.split("."):
-        if not isinstance(conf, dict) or part not in conf:
-            return missing
-        conf = conf[part]
-    return conf
-
-
 def unported_settings(cls: type, conf: dict, defaults: dict) -> dict:
     """The unported keys of ``cls`` (dotted) whose value in ``conf`` is not
     their default, with that value."""
@@ -80,8 +72,8 @@ def unported_settings(cls: type, conf: dict, defaults: dict) -> dict:
     missing = object()
     refused = {}
     for key in sorted(keys):
-        for leaf, default in _leaves(_lookup(defaults, key, missing), key).items():
-            value = _lookup(conf, leaf, missing)
+        for leaf, default in _leaves(lookup(defaults, key, missing), key).items():
+            value = lookup(conf, leaf, missing)
             if value != default:
                 refused[leaf] = None if value is missing else value
     return refused

@@ -4,7 +4,16 @@
 The network runs NCHW inside. Inputs and outputs keep the JAX package's
 layout and keys: ``image`` (B, H, W, C) in, ``keypoints`` (B, K, 2) with the
 +0.5 pixel-center convention, ``keypoint_scores``, ``keypoint_valid`` and
-``descriptors`` (B, K, D) out, K = ``max_num_keypoints`` slots."""
+``descriptors`` (B, K, D) out, K = ``max_num_keypoints`` slots.
+
+``dtype: bf16`` convolves in bfloat16 with float32 parameters, as flax's
+``nn.Conv(dtype=bf16)`` does: the input and the kernel are cast to bf16, the
+convolution is rounded to bf16 and the bias added in bf16. Where a float32
+parameter meets a bf16 array (the ``post_relu_affine`` affines) the result is
+float32, by the type promotion both libraries share, and the next convolution
+casts back; the grey conversion reads the float32 image. The detector logits
+and the dense descriptors become float32 before NMS, top-k, the CoM readout
+and the normalisation."""
 
 from __future__ import annotations
 
@@ -19,6 +28,25 @@ from ...ops.nms import com_refinement, select_top_k_keypoints, simple_nms
 from ..base_model import BaseModel
 
 _GRAY = (0.299, 0.587, 0.114)  # cv2 / ITU-R 601 weights
+COMPUTE_DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16}
+
+
+class Conv2d(nn.Conv2d):
+    """flax's ``nn.Conv(dtype=...)`` in NCHW: in bf16 the input and the
+    float32 kernel are cast to bf16, the convolution rounded to bf16 and the
+    bias added in bf16."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, padding: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(c_in, c_out, kernel_size, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        cdt = self.compute_dtype
+        y = self._conv_forward(x.to(cdt), self.weight.to(cdt), None)
+        return y + self.bias.to(cdt)[:, None, None]
 
 
 class ChannelAffine(nn.Module):
@@ -38,12 +66,13 @@ class VGGBackbone(nn.Module):
 
     pool_after = (1, 3, 5)
 
-    def __init__(self, channels: list[int], post_relu_affine: bool = False):
+    def __init__(self, channels: list[int], post_relu_affine: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.post_relu_affine = post_relu_affine
         c_in = 1
         for i, ch in enumerate(channels):
-            self.add_module(f"conv{i}", nn.Conv2d(c_in, ch, 3, padding=1))
+            self.add_module(f"conv{i}", Conv2d(c_in, ch, 3, padding=1, dtype=dtype))
             if post_relu_affine:
                 self.add_module(f"affine{i}", ChannelAffine(ch))
             c_in = ch
@@ -76,7 +105,7 @@ class SuperPoint(BaseModel):
         "post_relu_affine": False,
         "channels": [64, 64, 64, 64, 128, 128, 128, 128],
         "head_channels": 256,
-        "dtype": "float32",
+        "dtype": "float32",  # 'bf16' runs the CNN in bfloat16 (parameters stay float32)
         "weights": None,
         "loss": {  # the detector and descriptor losses of SuperPoint training
             "cell_pos_weight": 32.0,
@@ -100,11 +129,11 @@ class SuperPoint(BaseModel):
             "peaky_radius": 2,
         },
     }
-    # inference in float32 with both heads is what is ported; the weights
-    # come from utils/weights.py, not from a conf key
+    # inference with both heads is what is ported; the weights come from
+    # utils/weights.py, not from a conf key
     unported_conf: ClassVar[frozenset] = frozenset({
-        "has_detector", "has_descriptor", "dense_outputs", "training_outputs", "dtype",
-        "weights", "loss"})
+        "has_detector", "has_descriptor", "dense_outputs", "training_outputs", "weights",
+        "loss"})
     required_data_keys: ClassVar[list] = ["image"]
 
     def __init__(self, conf: dict | None = None):
@@ -112,13 +141,17 @@ class SuperPoint(BaseModel):
         conf = self.conf
         if conf["refinement_radius"] > 0 and conf["refinement_mode"] != "com":
             raise NotImplementedError("only refinement_mode='com' is ported")
+        if conf["dtype"] not in COMPUTE_DTYPES:
+            raise NotImplementedError(f"SuperPoint does not implement dtype={conf['dtype']!r} "
+                                      f"(ported: {sorted(COMPUTE_DTYPES)})")
+        cdt = COMPUTE_DTYPES[conf["dtype"]]
         c_feat = conf["channels"][-1]
         head = conf["head_channels"]
-        self.backbone = VGGBackbone(conf["channels"], conf["post_relu_affine"])
-        self.convPa = nn.Conv2d(c_feat, head, 3, padding=1)
-        self.convPb = nn.Conv2d(head, 65, 1)
-        self.convDa = nn.Conv2d(c_feat, head, 3, padding=1)
-        self.convDb = nn.Conv2d(head, conf["descriptor_dim"], 1)
+        self.backbone = VGGBackbone(conf["channels"], conf["post_relu_affine"], cdt)
+        self.convPa = Conv2d(c_feat, head, 3, padding=1, dtype=cdt)
+        self.convPb = Conv2d(head, 65, 1, dtype=cdt)
+        self.convDa = Conv2d(c_feat, head, 3, padding=1, dtype=cdt)
+        self.convDb = Conv2d(head, conf["descriptor_dim"], 1, dtype=cdt)
         if conf["post_relu_affine"]:
             self.affinePa = ChannelAffine(head)
             self.affineDa = ChannelAffine(head)

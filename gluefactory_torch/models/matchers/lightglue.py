@@ -6,13 +6,27 @@ Parameter names and the Wqkv layout follow the official PyTorch LightGlue
 package, whose weights these are: LayerNorm eps 1e-6 and the tanh GELU.
 Self-attention goes through kernel K1 (rotary fused) and cross-attention
 through kernel K2 (``ops/attention``) unless ``attention='xla'`` asks for
-the plain versions. Adaptive depth and width are not ported yet."""
+the plain versions. Adaptive depth and width are not ported yet.
+
+``dtype: bf16`` runs the transformer in bfloat16 with float32 parameters,
+rounding where flax does (not where ``torch.autocast`` would): each dense
+layer casts its input and weight to bf16, rounds the product to bf16 and
+adds the bias in bf16; LayerNorm computes in float32 and returns bf16; the
+tanh GELU runs op by op in bf16 (``GELU``) and the residual stream is bf16;
+descriptors and the rotary cos/sin are cast to bf16 before layer 0, and back
+to float32 after the last layer, before the assignment head, as are
+``desc_layers*``. The attention kernels (and their plain versions) compute
+in float32 from the bf16 inputs and round their output once, as the JAX
+package's Pallas kernels do; k arrives rotated in bf16, op by op, as JAX's
+``apply_rotary`` rounds it."""
 
 from __future__ import annotations
 
+import math
 from typing import ClassVar
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -30,9 +44,54 @@ def normalize_keypoints(kpts: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
     return (kpts - size / 2.0) / (scale + 1e-8)
 
 
-def _ffn(dim: int) -> nn.Sequential:
-    return nn.Sequential(nn.Linear(2 * dim, 2 * dim), nn.LayerNorm(2 * dim, eps=1e-6),
-                         nn.GELU(approximate="tanh"), nn.Linear(2 * dim, dim))
+COMPUTE_DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16}
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense(dtype=...)``: in bf16 the input and the float32
+    weight are cast to bf16, the product is rounded to bf16 and the bias is
+    added in bf16."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+        return y if self.bias is None else y + self.bias.to(self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(dtype=...)``: statistics and normalisation in
+    float32, the result in the compute dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
+class GELU(nn.Module):
+    """flax's ``nn.gelu``, the tanh form. On a bf16 array JAX runs its
+    operations one by one, each rounded to bf16, with its constants rounded to
+    bf16; so does this (torch's own bf16 GELU rounds once, which lands on
+    another bf16 value for ~40% of inputs)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return F.gelu(x, approximate="tanh")
+        c, k = x.new_tensor(math.sqrt(2 / math.pi)), x.new_tensor(0.044715)
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def _ffn(dim: int, dtype: torch.dtype) -> nn.Sequential:
+    return nn.Sequential(Dense(2 * dim, 2 * dim, dtype=dtype), LayerNorm(2 * dim, dtype),
+                         GELU(), Dense(2 * dim, dim, dtype=dtype))
 
 
 class LearnableFourierPositionalEncoding(nn.Module):
@@ -49,12 +108,12 @@ class LearnableFourierPositionalEncoding(nn.Module):
 
 
 class SelfBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, attn_impl: str):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str, dtype: torch.dtype):
         super().__init__()
         self.num_heads, self.attn_impl = num_heads, attn_impl
-        self.Wqkv = nn.Linear(dim, 3 * dim)
-        self.out_proj = nn.Linear(dim, dim)
-        self.ffn = _ffn(dim)
+        self.Wqkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.out_proj = Dense(dim, dim, dtype=dtype)
+        self.ffn = _ffn(dim, dtype)
 
     def forward(self, x, rot, mask=None):
         b, n, d = x.shape
@@ -69,13 +128,13 @@ class SelfBlock(nn.Module):
 class CrossBlock(nn.Module):
     """Bidirectional cross-attention through one shared q/k projection."""
 
-    def __init__(self, dim: int, num_heads: int, attn_impl: str):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str, dtype: torch.dtype):
         super().__init__()
         self.num_heads, self.attn_impl = num_heads, attn_impl
-        self.to_qk = nn.Linear(dim, dim)
-        self.to_v = nn.Linear(dim, dim)
-        self.to_out = nn.Linear(dim, dim)
-        self.ffn = _ffn(dim)
+        self.to_qk = Dense(dim, dim, dtype=dtype)
+        self.to_v = Dense(dim, dim, dtype=dtype)
+        self.to_out = Dense(dim, dim, dtype=dtype)
+        self.ffn = _ffn(dim, dtype)
 
     def forward(self, x0, x1, mask0=None, mask1=None):
         b, _, d = x0.shape
@@ -96,10 +155,10 @@ class CrossBlock(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, dim: int, num_heads: int, attn_impl: str):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str, dtype: torch.dtype):
         super().__init__()
-        self.self_attn = SelfBlock(dim, num_heads, attn_impl)
-        self.cross_attn = CrossBlock(dim, num_heads, attn_impl)
+        self.self_attn = SelfBlock(dim, num_heads, attn_impl, dtype)
+        self.cross_attn = CrossBlock(dim, num_heads, attn_impl, dtype)
 
     def forward(self, desc0, desc1, rot0, rot1, mask0=None, mask1=None):
         desc0 = self.self_attn(desc0, rot0, mask0)
@@ -159,7 +218,7 @@ class LightGlue(BaseModel):
         "width_confidence": -1,
         "checkpointed": True,  # recompute each layer in the backward pass
         "save_layer_outputs": True,  # per-layer descriptors for the loss
-        "dtype": "float32",
+        "dtype": "float32",  # 'bf16' runs the transformer in bfloat16
         "weights": None,
         "loss": {
             "gamma": 1.0,  # weight gamma^(L-1-i) of layer i's NLL
@@ -167,10 +226,8 @@ class LightGlue(BaseModel):
             "nll_balancing": 0.5,
         },
     }
-    # float32 is what is ported (bf16: ROADMAP queue 1, item 2); the weights
-    # come from utils/weights.py, not from a conf key
-    unported_conf: ClassVar[frozenset] = frozenset({
-        "dtype", "weights", "loss.fn", "loss.nll_balancing"})
+    # the weights come from utils/weights.py, not from a conf key
+    unported_conf: ClassVar[frozenset] = frozenset({"weights", "loss.fn", "loss.nll_balancing"})
     required_data_keys: ClassVar[list] = [
         "keypoints0", "keypoints1", "descriptors0", "descriptors1"]
 
@@ -181,12 +238,16 @@ class LightGlue(BaseModel):
             raise NotImplementedError("add_scale_ori is not ported")
         if conf["depth_confidence"] > 0 or conf["width_confidence"] > 0:
             raise NotImplementedError("adaptive depth and width are not ported")
+        if conf["dtype"] not in COMPUTE_DTYPES:
+            raise NotImplementedError(f"LightGlue does not implement dtype={conf['dtype']!r} "
+                                      f"(ported: {sorted(COMPUTE_DTYPES)})")
+        self.compute_dtype = COMPUTE_DTYPES[conf["dtype"]]
         d, h, n = conf["descriptor_dim"], conf["num_heads"], conf["n_layers"]
         attn_impl = conf["attention"] or ("auto" if conf["flash"] else "xla")
         self.input_proj = nn.Linear(conf["input_dim"], d)
         self.posenc = LearnableFourierPositionalEncoding(2, d // h)
         self.transformers = nn.ModuleList(
-            TransformerLayer(d, h, attn_impl) for _ in range(n))
+            TransformerLayer(d, h, attn_impl, self.compute_dtype) for _ in range(n))
         self.log_assignment = nn.ModuleList(MatchAssignment(d) for _ in range(n))
         self.token_confidence = nn.ModuleList(TokenConfidence(d) for _ in range(n - 1))
 
@@ -199,6 +260,9 @@ class LightGlue(BaseModel):
         desc1 = self.input_proj(data["descriptors1"])
         rot0 = self.posenc(normalize_keypoints(data["keypoints0"], size0))
         rot1 = self.posenc(normalize_keypoints(data["keypoints1"], size1))
+        cdt = self.compute_dtype
+        desc0, desc1 = desc0.to(cdt), desc1.to(cdt)
+        rot0, rot1 = tuple(r.to(cdt) for r in rot0), tuple(r.to(cdt) for r in rot1)
         layers0, layers1 = [], []
         for layer in self.transformers:
             if self.conf["checkpointed"] and torch.is_grad_enabled():
@@ -208,14 +272,15 @@ class LightGlue(BaseModel):
                 desc0, desc1 = layer(desc0, desc1, rot0, rot1, mask0, mask1)
             layers0.append(desc0)
             layers1.append(desc1)
+        desc0, desc1 = desc0.float(), desc1.float()
         scores, z0, z1 = self.log_assignment[-1](desc0, desc1, mask0, mask1)
         pred = {"log_assignment": scores,
                 **filter_matches(scores, self.conf["filter_threshold"]),
                 "matchability0": torch.sigmoid(z0),
                 "matchability1": torch.sigmoid(z1)}
         if self.conf["save_layer_outputs"]:
-            pred["desc_layers0"] = torch.stack(layers0)
-            pred["desc_layers1"] = torch.stack(layers1)
+            pred["desc_layers0"] = torch.stack(layers0).float()
+            pred["desc_layers1"] = torch.stack(layers1).float()
         # invalid slots are unmatched by construction
         if mask0 is not None:
             pred["matches0"] = pred["matches0"].masked_fill(~mask0, -1)
@@ -274,6 +339,13 @@ class LightGlue(BaseModel):
                                     (mask0, mask1)):
                 out.append(target if mask is None else target & mask)
         return out
+
+
+def head_counts(model: torch.nn.Module) -> dict[str, int]:
+    """The head count of each LightGlue inside ``model``, by module name (what
+    utils/weights needs to order Wqkv's rows)."""
+    return {name: m.conf["num_heads"] for name, m in model.named_modules()
+            if isinstance(m, LightGlue)}
 
 
 __main_model__ = LightGlue

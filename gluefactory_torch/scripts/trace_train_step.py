@@ -1,13 +1,15 @@
-"""Where the device time of a stage-2 training step goes: ``torch.profiler``
-over a few steps of the recipe at its published widths (batch 32, 320x320,
-512 keypoints, 6 layers) from the committed ``lg_tpu_stage2`` weights, after
-warm-up steps. Prints the host-clock step times, the device's busy and idle
+"""Where the device time of a training step goes: ``torch.profiler`` over a
+few steps of the stage-2 recipe (float32, from the committed ``lg_tpu_stage2``
+weights) or the stage-5 recipe (bf16, from ``lg5_init_spsoft``) at its
+published widths (batch 32, 320x320, 512 keypoints, 6 layers), after warm-up
+steps. Prints the host-clock step times, the device's busy and idle
 shares, the device time under each kind of operation (forward operators,
 the backward nodes of autograd, the attention Functions, the optimizer,
 the data engine) and the kernels that took the most device time. Needs a
 CUDA device.
 
-    python -m gluefactory_torch.scripts.trace_train_step [--steps 2] [--warmup 2]
+    python -m gluefactory_torch.scripts.trace_train_step [--recipe stage2|stage5]
+        [--steps 2] [--warmup 2]
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ..recipes import STAGE2_WEIGHTS, stage2_conf
+from ..recipes import STAGE2_WEIGHTS, stage2_conf, stage5_conf
 from ..train import Trainer, train_step
 from ..utils.device import resolve_device
 
 
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--recipe", choices=["stage2", "stage5"], default="stage2")
     parser.add_argument("--steps", type=int, default=2)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--pool", type=int, default=64, help="procedural pool images")
@@ -34,10 +37,13 @@ def main(argv: list[str] | None = None) -> None:
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    conf = stage2_conf()
+    conf = stage2_conf() if args.recipe == "stage2" else stage5_conf()
     conf["data"]["pool_size"] = args.pool
     conf["model"]["matcher"]["attention"] = args.attention
-    trainer = Trainer(conf, device=device, weights=STAGE2_WEIGHTS)
+    conf["train"]["run_benchmarks"] = []  # the step only
+    # stage 2's load_experiment is not committed; stage 5's is the blob
+    trainer = Trainer(conf, device=device,
+                      weights=STAGE2_WEIGHTS if args.recipe == "stage2" else None)
     for seed in range(args.warmup):
         trainer.step(seed)
     torch.cuda.synchronize()
@@ -57,7 +63,8 @@ def main(argv: list[str] | None = None) -> None:
                and e.key not in ("engine", "train_step")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     step_ms = sum(times) / len(times)
-    print(f"{torch.cuda.get_device_name(device)}: {args.steps} steps of {times} ms; "
+    print(f"{torch.cuda.get_device_name(device)}, {args.recipe}: {args.steps} steps of "
+          f"{times} ms; "
           f"device busy {busy_ms:.1f} ms a step ({100 * busy_ms / step_ms:.1f}%), "
           f"idle {100 * (1 - busy_ms / step_ms):.1f}%")
     groups = {

@@ -1,10 +1,46 @@
-"""Metric accumulators of the benchmarks (gluefactory_tpu/utils/tools.py)."""
+"""Metric accumulators of training and the benchmarks (gluefactory_tpu/utils/tools.py)."""
 
 from __future__ import annotations
 
 from collections.abc import Iterable
 
 import numpy as np
+
+
+class AverageMetric:
+    """The mean of every value seen, NaN values left out (NaN if none)."""
+
+    def __init__(self, elements=None):
+        self._sum = 0.0
+        self._num = 0
+        if elements is not None:
+            self.update(elements)
+
+    def update(self, x):
+        x = np.asarray(x, dtype=np.float64).ravel()
+        mask = ~np.isnan(x)
+        self._sum += float(x[mask].sum())
+        self._num += int(mask.sum())
+
+    def compute(self):
+        return np.nan if self._num == 0 else self._sum / self._num
+
+
+class MedianMetric:
+    """The median of every value seen, NaN values left out (NaN if none)."""
+
+    def __init__(self, elements=None):
+        self._elements = []
+        if elements is not None:
+            self.update(elements)
+
+    def update(self, x):
+        self._elements += np.asarray(x, dtype=np.float64).ravel().tolist()
+
+    def compute(self):
+        arr = np.array(self._elements)
+        arr = arr[~np.isnan(arr)]
+        return np.nan if arr.size == 0 else float(np.median(arr))
 
 
 def cal_error_auc(errors, thresholds) -> list[float]:

@@ -11,6 +11,11 @@ needs neither flax nor the msgpack package.
 ``params_from_flat`` carries the flax parameter tree over to the port's
 ``state_dict`` names and layouts; ``load_blob_into`` does both and loads
 strictly: every key of the blob must be used and every parameter filled.
+
+The other way, ``encode_msgpack`` writes the same subset (flax's ndarray and
+numpy-scalar ext types included), so ``flax.serialization.msgpack_restore``
+reads what it writes, and ``flat_from_params`` turns a ``state_dict`` back
+into the flat flax keys and layouts.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3  # a numpy scalar, packed as a 0-d array
 
 
 class _Reader:
@@ -42,10 +48,11 @@ class _Reader:
 
     def ext(self, code: int, n: int):
         data = bytes(self.take(n))
-        if code != _EXT_NDARRAY:
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unsupported msgpack ext type {code}")
         shape, dtype, raw = decode_msgpack(data)
-        return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+        arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+        return arr[()] if code == _EXT_NPSCALAR else arr
 
     def read(self):
         b = self.take(1)[0]
@@ -109,6 +116,96 @@ def decode_msgpack(data: bytes):
     if reader.pos != len(reader.buf):
         raise ValueError("trailing bytes after the msgpack object")
     return obj
+
+
+def _pack_header(out: bytearray, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+    """A container's or string's type byte and length: the fix form when it
+    fits, else the 8/16/32-bit length form (``codes``; None where there is none)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 2**64 - 1)) if v >= 0 else (
+        (0xD0, ">b", -2**7, 2**7 - 1), (0xD1, ">h", -2**15, 2**15 - 1),
+        (0xD2, ">i", -2**31, 2**31 - 1), (0xD3, ">q", -2**63, 2**63 - 1))
+    for code, fmt, lo, hi in forms:
+        if lo <= v <= hi:
+            out.append(code)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(fixed[len(data)])
+    else:
+        _pack_header(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _pack(out: bytearray, obj) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, np.ndarray):
+        arr = np.asarray(obj, order="C")  # (ascontiguousarray makes 0-d arrays 1-d)
+        _pack_ext(out, _EXT_NDARRAY, encode_msgpack((list(arr.shape), arr.dtype.name,
+                                                     arr.tobytes())))
+    elif isinstance(obj, np.generic):
+        arr = np.asarray(obj)
+        _pack_ext(out, _EXT_NPSCALAR, encode_msgpack(([], arr.dtype.name, arr.tobytes())))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_header(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_header(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _pack_header(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack(out, item)
+    elif isinstance(obj, dict):
+        _pack_header(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for key, value in sorted(obj.items()):  # flax's tree_map sorts them
+            if not isinstance(key, str):
+                raise TypeError(f"msgpack map keys must be str here, got {key!r}")
+            _pack(out, key)
+            _pack(out, value)
+    else:
+        raise TypeError(f"cannot encode {type(obj).__name__} as msgpack")
+
+
+def encode_msgpack(obj) -> bytes:
+    """Encode ``obj`` (dicts with str keys, lists, tuples, str, bytes, int,
+    float, bool, None, numpy arrays and scalars) as flax's
+    ``msgpack_serialize`` does: arrays as ext type 1 holding (shape, dtype
+    name, raw bytes), numpy scalars as ext type 3, floats as float64, map
+    keys sorted: the same bytes as flax's."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
 
 
 def load_weight_blob(path: str | Path) -> tuple[dict, dict, dict]:
@@ -203,6 +300,54 @@ def params_from_flat(flat: dict, num_heads: dict[str, int] | None = None) -> dic
             arr = arr[_qkv_rows(arr.shape[0] // 3, heads)]
         state[name] = torch.from_numpy(arr.copy())
     return state
+
+
+# --- PyTorch state_dict -> flax parameter tree (the inverse) -------------------
+
+_INVERSE_RENAMES = [  # on the module path, dot-terminated
+    (re.compile(r"\b(transformers|log_assignment|token_confidence)\.(\d+)\."), r"\1_\2."),
+    (re.compile(r"\bcross_attn\.ffn\.(\d)\."), r"cross_attn.ffn.ffn.\1."),
+    (re.compile(r"\bffn\.0\."), "ffn_0."),
+    (re.compile(r"\bffn\.1\."), "ffn_norm."),
+    (re.compile(r"\bffn\.3\."), "ffn_2."),
+    (re.compile(r"\btoken\.0\."), "token."),
+    (re.compile(r"\bposenc\.Wr\."), "posenc."),
+]
+
+
+def flax_key(name: str) -> str:
+    """The flat flax key of the PyTorch parameter ``name``, the inverse of
+    ``_torch_name``: e.g. ``matcher.transformers.0.cross_attn.ffn.1.weight``
+    -> ``"['params']['matcher']['transformers_0']['cross_attn']['ffn']
+    ['ffn_norm']['scale']"``."""
+    modules, leaf = name.rsplit(".", 1)
+    path = modules + "."
+    for pattern, repl in _INVERSE_RENAMES:
+        path = pattern.sub(repl, path)
+    parts = path.rstrip(".").split(".")
+    if leaf == "weight":
+        leaf = "scale" if parts[-1].endswith("norm") else "kernel"
+    return "".join(f"['{p}']" for p in ["params", *parts, leaf])
+
+
+def flat_from_params(state: dict, num_heads: dict[str, int] | None = None) -> dict:
+    """PyTorch state_dict -> flat flax params (float32 numpy arrays): the
+    inverse of ``params_from_flat``, Wqkv rows put back in flax's order."""
+    flat = {}
+    for name, value in state.items():
+        key = flax_key(name)
+        path = _flax_path(key)
+        arr = value.detach().cpu().numpy()
+        if "Wqkv" in path:
+            prefix = name.split("transformers.")[0].rstrip(".")
+            heads = (num_heads or {}).get(prefix)
+            if heads is None:
+                raise KeyError(f"{name}: no head count given for {prefix!r}")
+            arr = arr[np.argsort(_qkv_rows(arr.shape[0] // 3, heads))]
+        if path[-1] == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        flat[key] = np.ascontiguousarray(arr)
+    return flat
 
 
 def load_state_strict(model: torch.nn.Module, state: dict) -> None:

@@ -77,8 +77,8 @@ def test_unported_keys_refuse_any_other_value(name):
 
 
 @pytest.mark.parametrize("name,conf", [
-    ("matchers.lightglue", {"dtype": "bf16"}),
-    ("extractors.superpoint", {"dtype": "bf16"}),
+    ("matchers.lightglue", {"dtype": "float16"}),  # float32 and bf16 are ported
+    ("extractors.superpoint", {"dtype": "float16"}),
     ("extractors.superpoint", {"has_detector": False}),
     ("extractors.superpoint", {"dense_outputs": True}),
     ("extractors.superpoint", {"training_outputs": True}),
@@ -94,8 +94,8 @@ def test_refused_settings_name_the_key(name, conf):
 
 def test_pipeline_refuses_through_its_slots():
     conf = stage2_conf()["model"]
-    conf["matcher"]["dtype"] = "bf16"  # as the stage-5 recipe sets it
-    with pytest.raises(NotImplementedError, match="LightGlue does not implement dtype"):
+    conf["matcher"]["loss"] = {"fn": "focal"}
+    with pytest.raises(NotImplementedError, match=r"LightGlue does not implement loss\.fn"):
         build_model("two_view_pipeline", conf, device="cpu")
 
 
@@ -106,10 +106,25 @@ def test_recipes_still_build():
 
 
 def test_trainer_refuses_run_benchmarks():
+    """A benchmark that is not ported, and an overlay that changes a
+    parameter's shape (the JAX trainer's message), are refused before any
+    step; hpatches with an overlay of keypoint counts is accepted."""
     conf = stage2_conf()
-    conf["train"]["run_benchmarks"] = ["hpatches"]
-    with pytest.raises(NotImplementedError, match="run_benchmarks"):
+    conf["data"].update(pool_size=1, source_size=[96, 96])
+    conf["train"]["load_experiment"] = None  # stage 2's start is not committed
+    conf["train"]["run_benchmarks"] = [{"name": "megadepth1500"}]
+    with pytest.raises(NotImplementedError, match="megadepth1500"):
         Trainer(conf, device="cpu")
+    conf["train"]["run_benchmarks"] = [{"name": "hpatches",
+                                        "model": {"matcher": {"descriptor_dim": 128}}}]
+    with pytest.raises(ValueError, match=r"run_benchmarks\[hpatches\]\.model overlay changes"):
+        Trainer(conf, device="cpu")
+    conf["train"]["run_benchmarks"] = [{"name": "hpatches",
+                                        "model": {"extractor": {"max_num_keypoints": 1024}}}]
+    trainer = Trainer(conf, device="cpu")
+    overlay = trainer.bench_models["hpatches"]
+    assert overlay.extractor.conf["max_num_keypoints"] == 1024
+    assert overlay.matcher.input_proj.weight is trainer.model.matcher.input_proj.weight
 
 
 # --- the attention kernels' layout ---------------------------------------------

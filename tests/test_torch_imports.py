@@ -67,8 +67,39 @@ tconf = {{"data": {{"name": "homographies_ondevice", "pool_size": 2, "source_siz
                    "ground_truth": {{"name": "matchers.homography_matcher"}},
                    "run_gt_in_forward": True}},
          "train": {{"lr": 1e-4}}}}
-_, history = training(tconf, steps=1, device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    _, history = training(tconf, Path(tmp) / "train", steps=1, device="cpu")
 assert history[0]["skipped"] == 0.0 and history[0]["loss/total"] > 0
+
+# the stage-5 path in miniature: bf16, validation, the benchmark on an
+# overlay, checkpoints (msgpack encoder, JSON config.yaml) and a restore
+import argparse, json
+
+from gluefactory_torch.utils.experiments import load_experiment
+
+for comp in ("extractor", "matcher"):
+    tconf["model"][comp]["dtype"] = "bf16"
+tconf["data"].update(val_pool_size=2, val_batch_size=2, val_steps=1, steps_per_epoch=2)
+with tempfile.TemporaryDirectory() as tmp:
+    generate(Path(tmp) / "hp", 1, (128, 96), 0)
+    tconf["train"].update(epochs=1, eval_every_iter=2, log_every_iter=1,
+                          best_key="bench/hpatches/mnum_keypoints", best_mode="max",
+                          run_benchmarks=[{{"name": "hpatches", "conf": {{
+                              "data": {{"data_dir": str(Path(tmp) / "hp"),
+                                        "preprocessing": {{"resize": 128}}}},
+                              "eval": {{"num_hypotheses": 64}}}},
+                              "model": {{"extractor": {{"max_num_keypoints": 40}},
+                                        "ground_truth": {{"name": None}},
+                                        "run_gt_in_forward": False}}}}])
+    run = Path(tmp) / "stage5"
+    training(tconf, run, device="cpu")
+    tconf["train"]["epochs"] = 2
+    trainer, resumed = training(tconf, run, argparse.Namespace(restore=True), device="cpu")
+    assert len(resumed) == 2 and trainer.optimizer.count == 4
+    blob, saved = load_experiment(str(run), best=True)
+    assert blob["eval"]["bench/hpatches/mnum_keypoints"] == 40.0 and saved == trainer.conf
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert any("val/match_AP" in r for r in records)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -450,7 +450,7 @@ def test_pipeline_loss_runs_ground_truth_and_skips_frozen_slots():
     assert set(losses) == {"nll_pos", "nll_neg", "assignment_nll", "confidence", "total"}
 
 
-def test_trainer_and_probe_need_cuda_unless_asked_for_the_cpu():
+def test_trainer_and_probe_need_cuda_unless_asked_for_the_cpu(tmp_path):
     """The trainer, the probe and the step trace run on the card; only the
     first two take ``device='cpu'``."""
     if torch.cuda.is_available():
@@ -458,14 +458,15 @@ def test_trainer_and_probe_need_cuda_unless_asked_for_the_cpu():
     from gluefactory_torch.scripts import kernel_probe, trace_train_step
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        training(_tiny_training_conf(), steps=1)
+        training(_tiny_training_conf(), tmp_path, steps=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trace_train_step.main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(_tiny_training_conf())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kernel_probe.main(["--out", "unused.json"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # an experiment that is not there (stage 2's start is not committed)
+    with pytest.raises(FileNotFoundError, match="lg_r2_sp0b"):
         Trainer(dict(_tiny_training_conf(), train={"load_experiment": "lg_r2_sp0b"}),
                 device="cpu")
 
@@ -507,3 +508,123 @@ def test_views_with_a_cache_skip_the_extractor_when_allowed():
     for out in (skipped, extracted):
         assert torch.equal(out["descriptors1"], cached["view1"]["cache"]["descriptors"])
     torch.testing.assert_close(skipped["log_assignment"], extracted["log_assignment"])
+
+
+# --- the optimizer's plateau and lr_scaling, validation, the stage-5 recipe ----
+
+def test_plateau_controller_matches_jax():
+    """The same validation values through both controllers: the same scale
+    after each, with patience, min_scale and NaN values."""
+    from gluefactory_tpu.train import PlateauController as JPlateau
+    from gluefactory_torch.train import PlateauController
+
+    sched = {"type": "plateau", "factor": 0.5, "patience": 2, "min_scale": 0.1}
+    values = [3.0, 2.5, 2.6, 2.7, 2.4, 2.4, 2.5, float("nan"), 2.6, 2.6, 2.7, 2.8, 2.9, 3.0,
+              3.1, 3.2, 3.3]
+    ours, theirs = PlateauController(sched), JPlateau(Config(sched))
+    for value in values:
+        assert ours.update(value) == theirs.update(value)
+        assert ours.scale == theirs.scale and ours.bad == theirs.bad
+    assert ours.scale == 0.1
+    off = PlateauController({"type": "exp"})
+    assert not any(off.update(v) for v in values) and off.scale == 1.0
+
+
+def test_metric_accumulators_match_jax():
+    """AverageMetric and MedianMetric over batches with NaN values (left out)
+    and over nothing (NaN)."""
+    from gluefactory_tpu.utils import tools as jtools
+    from gluefactory_torch.utils import tools
+
+    rng = np.random.default_rng(5)
+    batches = [rng.normal(size=7), np.array([np.nan, 1.5]), rng.normal(size=(2, 3))]
+    for name in ("AverageMetric", "MedianMetric"):
+        ours, theirs = getattr(tools, name)(), getattr(jtools, name)()
+        assert np.isnan(ours.compute()) and np.isnan(theirs.compute())
+        for batch in batches:
+            ours.update(batch)
+            theirs.update(batch)
+        assert ours.compute() == theirs.compute()
+
+
+def test_lr_scaling_matches_jax_masks():
+    """``lr_scaling`` selects the parameters whose flax path holds a
+    substring, as JAX's masks do; an entry that matches nothing is dropped;
+    the scales of two matching entries multiply."""
+    from gluefactory_tpu.train import lr_scaling_masks
+    from gluefactory_torch.train import lr_scales
+    from gluefactory_torch.utils.weights import flax_key
+
+    conf = __graft_entry__._flagship_conf(tiny=True)
+    jmodel = jax_build_model("two_view_pipeline", conf)
+    engine = JEngine({**_ENGINE_CONF, "train_batch_size": 1})
+    pool = jax.tree.map(jnp.asarray, engine.build_pool("train"))
+    params = jmodel.init(jax.random.key(0), engine.make_batch(pool, jax.random.key(1)),
+                         method=jmodel.forward_and_loss)
+    scaling = [[0.1, ["log_assignment", "posenc"]], [3.0, ["self_attn/Wqkv"]],
+               [0.5, ["log_assignment_1"]], [7.0, ["no_such_module"]]]
+    masks = lr_scaling_masks(params, scaling)
+    model = build_model("two_view_pipeline", conf, device="cpu")
+    names = [n for n, _ in model.named_parameters()]
+    scales, used = lr_scales(names, scaling)
+    assert used == len(masks) == 3
+    expected = {k: 1.0 for k in state_to_flat_dict(params)}
+    for scale, mask in masks:
+        for key, hit in state_to_flat_dict(mask).items():
+            if bool(hit):
+                expected[key] *= scale
+    assert {flax_key(n): s for n, s in zip(names, scales)} == expected
+    assert {s for s in scales} == {1.0, 0.1, 3.0, 0.05}
+
+
+def test_pr_counts_and_match_ap_match_jax():
+    """Binned match confidences by correctness over three batches and the
+    average precision from them: the port's ``_pr_counts`` and
+    ``do_evaluation`` against JAX's, fed the same predictions."""
+    from gluefactory_tpu.train import _pr_counts as jax_pr_counts
+    from gluefactory_tpu.train import do_evaluation as jax_do_evaluation
+    from gluefactory_torch.train import _pr_counts, do_evaluation
+
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(3):
+        b, n, m = 2, 40, 36
+        gt = _match_codes(rng, b, n, m)
+        m0 = np.where(rng.uniform(size=(b, n)) < 0.7, gt, rng.integers(-1, m, (b, n)))
+        m0 = np.where(m0 < 0, -1, m0)
+        scores = np.where(m0 >= 0, rng.uniform(size=(b, n)), 0.0).astype(np.float32)
+        scores[0, :3] = [0.0, 1.0, 0.5]  # the edges of the bins
+        batches.append(({"matches0": m0, "matching_scores0": scores},
+                        {"gt_matches0": gt}, rng.uniform(size=b).astype(np.float32)))
+    for pred, data, _ in batches:
+        ours = _pr_counts(jax.tree.map(_t, pred), jax.tree.map(_t, data))
+        theirs = jax_pr_counts(jax.tree.map(jnp.asarray, pred), jax.tree.map(jnp.asarray, data))
+        for key in ("correct", "incorrect", "num_pos"):
+            np.testing.assert_array_equal(ours[key].numpy(), np.asarray(theirs[key]))
+
+    def jax_forward(params, pool, seed):
+        pred, data, loss = batches[seed]
+        return ({"total": loss}, {"recall": loss * 2},
+                jax_pr_counts(jax.tree.map(jnp.asarray, pred), jax.tree.map(jnp.asarray, data)))
+
+    def forward(pool, seed):
+        pred, data, loss = batches[seed]
+        return ({"total": _t(loss)}, {"recall": _t(loss * 2)},
+                _pr_counts(jax.tree.map(_t, pred), jax.tree.map(_t, data)))
+
+    ours = do_evaluation(torch.nn.Module(), range(3), forward, pool={})
+    theirs = jax_do_evaluation(None, None, [{"seed": i} for i in range(3)], jax_forward,
+                               pool=object())
+    assert ours.keys() == theirs.keys() == {"loss/total", "metric/recall", "match_AP"}
+    for key, value in theirs.items():
+        assert ours[key] == pytest.approx(value, rel=1e-12), key
+    assert 0.1 < ours["match_AP"] < 1.0
+
+
+def test_stage5_recipe_is_the_yaml():
+    from gluefactory_torch.recipes import STAGE5_WEIGHTS, stage5_conf
+
+    path = ROOT / "gluefactory_tpu/configs/superpoint+lightglue_stage5_r4.yaml"
+    assert stage5_conf() == yaml.safe_load(path.read_text())
+    assert (ROOT / stage5_conf()["train"]["load_experiment"]) == STAGE5_WEIGHTS
+    assert STAGE5_WEIGHTS.exists()

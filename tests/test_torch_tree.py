@@ -8,7 +8,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
-RUNTIME_FILES = ["chip_smoke.py", "weights/lg_tpu_stage2.f16.msgpack"]
+RUNTIME_FILES = ["chip_smoke.py", "weights/lg_tpu_stage2.f16.msgpack",
+                 "weights/lg5_init_spsoft.f16.msgpack"]
 
 
 def _git(*args: str) -> subprocess.CompletedProcess:

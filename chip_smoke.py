@@ -44,7 +44,14 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      benchmark overlay on famA's first 8 sequences held to the JAX package's
      bf16 numbers, then train.training cut to 2 epochs of 4 steps with an
      evaluation, a benchmark and a checkpoint at each epoch end, and a
-     --restore (see check_stage5).
+     --restore (see check_stage5);
+ 10. pose: the relative-pose benchmark (eval.megadepth1500.MegaDepth1500Pipeline
+     with recipes.pose_flagship_conf: 1600x1600 canvas, 1024 keypoints, 6 layers,
+     the refiner, 5-point LO-RANSAC with 2048 hypotheses over 6 thresholds) on the
+     20 pairs that the port renders (scripts/generate_pose_eval_set); 12 + 12 kernel
+     launches a pair, summaries held to the JAX package's on the same set, pair 0's
+     RANSAC on the card held to the CPU's; pair latency, sweep time, pairs per
+     second and peak memory printed (see check_pose).
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Only torch and numpy are needed besides the repository.
@@ -729,7 +736,7 @@ def time_stages(model, dataset, device, n_pairs: int) -> dict:
     import numpy as np
     import torch
 
-    from gluefactory_torch.eval.hpatches import to_model_input
+    from gluefactory_torch.eval.eval_pipeline import to_model_input
 
     stages = {"extractor": model.extractor, "matcher": model.matcher, "refiner": model.filter}
     ms = {name: [] for name in stages}
@@ -1054,6 +1061,165 @@ def check_stage5(device, fam_dir: Path, root: Path):
     return launches, report
 
 
+# --- phase 10: the relative-pose benchmark at full width -----------------------------
+
+POSE_SET = {"num_scenes": 10, "pairs_per_scene": 2, "seed": 31415}  # the renderer's defaults
+# The JAX package's summaries on the same set (python -m gluefactory_tpu.eval.megadepth1500
+# with the conf of outputs/results/megadepth1500/sp0b_lg2_com_refine_pose/conf.yaml, on
+# the CPU, RANSAC seed 0, on the set of gluefactory_torch.scripts.generate_pose_eval_set
+# with its defaults; PERF.md, section 6). Seeds 1 and 2 give mAA 97.508 and 97.437.
+POSE_SET_JAX = {"rel_pose_error_mAA": 97.858, "mnum_matches": 349.3, "mepi_prec@1e-03": 0.734}
+# |port - JAX|: mAA points (max(1.5, 3 x JAX's spread of 0.421 over RANSAC seeds 0-2)),
+# relative match count, precision
+POSE_TOLERANCES = {"rel_pose_error_mAA": 1.5, "mnum_matches": 0.03, "mepi_prec@1e-03": 0.02}
+POSE_CPU_DEG = 0.05  # one pair's RANSAC on the card against the CPU, same minimal sets
+
+
+def render_pose_set(root: Path) -> float:
+    """Render POSE_SET under ``root`` in worker processes (numpy, no device);
+    returns the seconds it took."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gluefactory_torch.scripts.generate_pose_eval_set import render_scene_job, write_pairs
+
+    t = time.perf_counter()
+    context = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(RENDER_WORKERS, mp_context=context) as pool:
+        jobs = [pool.submit(render_scene_job, root, POSE_SET["seed"], s,
+                            POSE_SET["pairs_per_scene"]) for s in range(POSE_SET["num_scenes"])]
+        write_pairs(root, [line for job in jobs for line in job.result()])
+    return time.perf_counter() - t
+
+
+def _angles(R, t, R_ref, t_ref) -> tuple[float, float]:
+    """Degrees between two rotations and between two directions, in float64."""
+    import numpy as np
+
+    R, t, R_ref, t_ref = (np.asarray(x.double().cpu()) for x in (R, t, R_ref, t_ref))
+    dr = np.degrees(2 * np.arcsin(min(1.0, np.linalg.norm(R - R_ref) / (2 * np.sqrt(2)))))
+    t, t_ref = t / np.linalg.norm(t), t_ref / np.linalg.norm(t_ref)
+    return float(dr), float(np.degrees(2 * np.arcsin(min(1.0, np.linalg.norm(t - t_ref) / 2))))
+
+
+def pose_against_cpu(pipeline, pred_file: Path, th: float, device) -> dict:
+    """Pair 0's RANSAC at ``th`` px on the card and on the CPU from the same
+    2048 minimal sets, through the float32 estimator the benchmark runs
+    (``RelativePoseEstimator``: the pixel threshold over the mean focal
+    length, ``success``) and through ``ransac_essential`` in float64: the
+    degrees between the card's pose and the CPU's, for each."""
+    import torch
+
+    from gluefactory_torch.eval.eval_pipeline import unbatch
+    from gluefactory_torch.eval.utils import get_matches_scores
+    from gluefactory_torch.robust_estimators import load_estimator
+    from gluefactory_torch.robust_estimators.homography.ransac import sample_minimal_sets
+    from gluefactory_torch.robust_estimators.relative_pose.ransac import ransac_essential
+
+    batch = next(iter(pipeline.get_dataloader()))
+    data, pred = unbatch(batch), pipeline.load_predictions(pred_file)(batch)
+    pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                              pred["matches0"], pred["matching_scores0"])
+    conf = {**pipeline.conf["eval"], "ransac_th": th}
+    valid = torch.from_numpy(valid)
+    idx = sample_minimal_sets(valid, conf["num_hypotheses"], torch.Generator().manual_seed(0), 5)
+    f_mean = float(torch.cat([data["camera0"].f, data["camera1"].f]).mean())
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        poses = []
+        for dev in (device, torch.device("cpu")):
+            if dtype == torch.float64:
+                rays = [data[f"camera{i}"].to(dev, dtype).image2cam(
+                    torch.from_numpy(p).to(dev, dtype)[None])[0] for i, p in enumerate((pts0, pts1))]
+                _, R, t, _, _ = ransac_essential(
+                    *rays, valid.to(dev), th=th / f_mean, num_hypotheses=conf["num_hypotheses"],
+                    lo_iters=conf["lo_iters"], sample_idx=idx.to(dev))
+            else:
+                est = load_estimator("relative_pose", "ransac")(conf)({
+                    "m_kpts0": torch.from_numpy(pts0).to(dev),
+                    "m_kpts1": torch.from_numpy(pts1).to(dev),
+                    "camera0": data["camera0"], "camera1": data["camera1"],
+                    "valid": valid.to(dev), "sample_idx": idx.to(dev)})
+                if not est["success"]:
+                    raise AssertionError(f"pose: pair 0 at {th} px fails on {dev}")
+                R, t = est["M_0to1"].R, est["M_0to1"].t
+            poses += [R, t]
+        out[str(dtype).split(".")[-1]] = _angles(*poses)
+    return out
+
+
+def check_pose(device, root: Path):
+    """``MegaDepth1500Pipeline`` (python -m gluefactory_torch.eval.megadepth1500)
+    with ``recipes.pose_flagship_conf`` on the rendered set, through the
+    kernels: 12 + 12 launches a pair, the summaries within POSE_TOLERANCES of
+    the JAX package's on the same set, and pair 0's RANSAC on the card
+    against the CPU. Returns (the attention launches, what is printed)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.eval.io import load_model
+    from gluefactory_torch.eval.megadepth1500 import MegaDepth1500Pipeline
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import pose_flagship_conf
+
+    render_s = render_pose_set(root)
+    conf = merge(pose_flagship_conf(), {"data": {"pairs": str(root / "pairs_calibrated.txt"),
+                                                  "root": str(root / "images")}})
+    pipeline = MegaDepth1500Pipeline(conf, device=device)
+    n_pairs = len(pipeline.dataset)
+    log(f"  rendered {n_pairs} pairs of 640x480 in {render_s:.1f} s ({RENDER_WORKERS} "
+        "processes)")
+    model = load_model(conf["model"], conf["checkpoint"], device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t = time.perf_counter()
+    summaries, _ = pipeline.run(root / "eval", model=model, overwrite=True)
+    seconds = time.perf_counter() - t
+    counts = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    forward, sweep = pipeline.timings["forward_ms"], pipeline.timings["ransac_sweep_ms"]
+    report = {"render_s": render_s, "pairs": n_pairs, "seconds": seconds,
+              "pairs_per_s": n_pairs / seconds, "median_forward_ms": float(np.median(forward)),
+              "median_ransac_sweep_s": float(np.median(sweep)) / 1e3,
+              "peak_gib": peak / 2**30, "launches": counts, "summaries": summaries}
+    ev = pipeline.conf["eval"]
+    log(f"  {n_pairs} pairs in {seconds:.1f} s ({n_pairs / seconds:.2f} pairs/s); median pair "
+        f"latency {report['median_forward_ms']:.1f} ms (model forward and refiner at 1600x1600, "
+        f"1024 keypoints); median RANSAC sweep {report['median_ransac_sweep_s']:.3f} s a pair "
+        f"(6 thresholds x {ev['num_hypotheses']} hypotheses, 5-point, {ev['lo_iters']} LO "
+        f"steps, 8 Gauss-Newton steps); peak memory {report['peak_gib']:.2f} GiB; launches "
+        f"{counts}")
+    log(f"  summaries: {json.dumps(summaries)}")
+    if counts != {"attention_rotary": 12 * n_pairs, "attention": 12 * n_pairs}:
+        raise AssertionError(f"pose: kernel launches {counts} for {n_pairs} pairs, expected "
+                             "12 and 12 a pair")
+    failures = []
+    for key, ref in POSE_SET_JAX.items():
+        tol = POSE_TOLERANCES[key] * (abs(ref) if key == "mnum_matches" else 1.0)
+        diff = float(summaries[key]) - ref
+        verdict = "ok" if abs(diff) <= tol else "FAILS"
+        log(f"  {key}: port {float(summaries[key]):.3f}, JAX {ref:.3f}, difference {diff:+.3f} "
+            f"(tolerance {tol:.3f}) {verdict}")
+        if verdict != "ok":
+            failures.append(f"{key}: {float(summaries[key])} against {ref}")
+    th = float(summaries["best_ransac_th"])
+    report["against_cpu"] = pose_against_cpu(pipeline, root / "eval" / "predictions.npz", th,
+                                             device)
+    (r64, t64), (r32, t32) = report["against_cpu"]["float64"], report["against_cpu"]["float32"]
+    log(f"  pair 0 at {th} px, card against CPU on the same minimal sets, rotation / "
+        f"translation: the float32 estimator {r32:.2e} / {t32:.2e} deg, ransac_essential in "
+        f"float64 {r64:.2e} / {t64:.2e} deg (tolerance {POSE_CPU_DEG} deg)")
+    for name, (r, t) in report["against_cpu"].items():
+        if not max(r, t) <= POSE_CPU_DEG:
+            failures.append(f"pair 0 on the card against the CPU in {name}: {r}, {t} degrees")
+    if failures:
+        raise AssertionError(f"pose benchmark: {failures}")
+    return counts, report
+
+
 # --- main --------------------------------------------------------------------
 
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
@@ -1147,16 +1313,23 @@ def main() -> int:
                                           Path(tmp) / "stage5")
         log(f"  phase 9 took {time.perf_counter() - t:.1f} s")
 
+        log("phase 10: the relative-pose benchmark at full width")
+        t = time.perf_counter()
+        pose_launches, _ = check_pose(device, Path(tmp) / "pose")
+        log(f"  phase 10 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
                              "hpatches": bench_launches["attention_rotary"],
-                             "stage5": stage5_launches["attention_rotary"]},
+                             "stage5": stage5_launches["attention_rotary"],
+                             "pose": pose_launches["attention_rotary"]},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
                       "hpatches": bench_launches["attention"],
-                      "stage5": stage5_launches["attention"]},
+                      "stage5": stage5_launches["attention"],
+                      "pose": pose_launches["attention"]},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

@@ -29,12 +29,12 @@ from ..ops.photometric import photometric_apply, photometric_draws
 from ..ops.warp import warp_image
 from .base_dataset import BaseDataset
 
-# --- numpy rasterisation of the scene primitives (cv2's filled shapes) ---------
+# --- numpy rasterisation of the scene primitives (cv2's filled shapes), gray or colour
 
 
 def _window(img, x0, y0, x1, y1):
     """Pixel-center grids of the image window [x0, x1] x [y0, y1], clipped."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     x0, y0 = max(int(np.floor(x0)), 0), max(int(np.floor(y0)), 0)
     x1, y1 = min(int(np.ceil(x1)), w - 1), min(int(np.ceil(y1)), h - 1)
     if x0 > x1 or y0 > y1:
@@ -61,7 +61,7 @@ def fill_polygon(img, pts, color):
 
 def fill_rectangle(img, x0, y0, x1, y1, color):
     """cv2.rectangle(..., thickness=-1): both corners included."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     xa, xb = sorted((x0, x1))
     ya, yb = sorted((y0, y1))
     img[max(ya, 0):min(yb, h - 1) + 1, max(xa, 0):min(xb, w - 1) + 1] = color
@@ -78,7 +78,7 @@ def _segment_distance(px, py, p0, p1):
 def _bresenham(img, p0, p1, color):
     """cv2.line of thickness 1: OpenCV's 8-connected line iterator."""
     (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
-    h, w = img.shape
+    h, w = img.shape[:2]
     if x1 < x0:  # left to right
         x0, y0, x1, y1 = x1, y1, x0, y0
     dx, dy = x1 - x0, abs(y1 - y0)

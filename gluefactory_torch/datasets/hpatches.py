@@ -9,8 +9,6 @@ canvas coordinates of view 0 to those of view 1."""
 
 from __future__ import annotations
 
-from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import ClassVar
 
@@ -18,25 +16,12 @@ import numpy as np
 
 from ..settings import DATA_PATH
 from ..utils.image import ImagePreprocessor, read_image
-from .base_dataset import BaseDataset
+from .base_dataset import BaseDataset, read_ahead
 
 IGNORED_SCENES = (
     "i_contruction", "i_crownnight", "i_dc", "i_pencils", "i_whitebuilding",
     "v_artisans", "v_astronautis", "v_talent",
 )
-
-
-def collate(items: list[dict]) -> dict:
-    """Stack numpy arrays along a new batch axis; other values become lists."""
-    out = {}
-    for key, value in items[0].items():
-        if isinstance(value, dict):
-            out[key] = collate([item[key] for item in items])
-        elif isinstance(value, (np.ndarray, np.generic)):
-            out[key] = np.stack([item[key] for item in items])
-        else:
-            out[key] = [item[key] for item in items]
-    return out
 
 
 class HPatchesDataset(BaseDataset):
@@ -91,26 +76,12 @@ class HPatchesDataset(BaseDataset):
         return {"view0": view0, "view1": view1, "H_0to1": H.astype(np.float32),
                 "idx": np.int32(i), "name": f"{seq}/{idx}"}
 
-    def _batch(self, indices) -> dict:
-        return collate([self[i] for i in indices])
-
     def get_data_loader(self, split: str = "test"):
         """Batches of ``test_batch_size`` items in order, collated, read
-        ahead by ``num_workers`` threads (numpy releases the interpreter lock
-        in the resize)."""
+        ahead by ``num_workers`` threads."""
         if split != "test":
             raise ValueError(f"HPatches has only a test split, not {split!r}")
-        size = int(self.conf["test_batch_size"])
-        batches = [range(s, min(s + size, len(self))) for s in range(0, len(self), size)]
-        workers = max(int(self.conf["num_workers"]), 1)
-        with ThreadPoolExecutor(workers) as pool:
-            pending = deque()
-            for indices in batches:
-                pending.append(pool.submit(self._batch, indices))
-                if len(pending) > 2 * workers:
-                    yield pending.popleft().result()
-            while pending:
-                yield pending.popleft().result()
+        return read_ahead(self, int(self.conf["test_batch_size"]), int(self.conf["num_workers"]))
 
 
 __main_dataset__ = HPatchesDataset

@@ -1,16 +1,26 @@
-"""Benchmarks (gluefactory_tpu/eval): HPatches homography estimation, and the
-registry that the trainer's end-of-epoch benchmarks go through."""
+"""Benchmarks (gluefactory_tpu/eval): HPatches homography estimation,
+MegaDepth-1500 and ScanNet-1500 relative pose, and the registry that the
+trainer's end-of-epoch benchmarks go through."""
 
 from __future__ import annotations
 
+import importlib
+
+
+BENCHMARKS = {  # name: (module, pipeline class)
+    "hpatches": ("hpatches", "HPatchesPipeline"),
+    "megadepth1500": ("megadepth1500", "MegaDepth1500Pipeline"),
+    "scannet1500": ("scannet1500", "ScanNet1500Pipeline"),
+}
+
 
 def get_benchmark(name: str):
-    """The pipeline class of benchmark ``name``; only hpatches is ported."""
-    if name != "hpatches":
-        raise NotImplementedError(f"benchmark {name!r} is not ported (ported: hpatches)")
-    from .hpatches import HPatchesPipeline
-
-    return HPatchesPipeline
+    """The pipeline class of benchmark ``name``."""
+    if name not in BENCHMARKS:
+        raise NotImplementedError(f"benchmark {name!r} is not ported (ported: "
+                                  f"{', '.join(BENCHMARKS)})")
+    module, cls = BENCHMARKS[name]
+    return getattr(importlib.import_module(f"{__name__}.{module}"), cls)
 
 
 def run_benchmark(name: str, conf: dict, exp_dir, model=None, device="cuda"):

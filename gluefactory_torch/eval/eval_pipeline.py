@@ -12,13 +12,21 @@ from __future__ import annotations
 
 import json
 import logging
+import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..core.config import collect_defaults, merge
+from ..datasets import get_dataset
+from ..utils.device import resolve_device
+from .io import load_model
 
 logger = logging.getLogger(__name__)
+
+SWEEP = [0.5, 1.0, 1.5, 2.0, 2.5, 3.0]  # RANSAC thresholds (px) when eval.ransac_th is -1
 
 
 def load_eval(dir_: Path) -> tuple[dict, dict]:
@@ -44,25 +52,114 @@ def exists_eval(dir_: Path) -> bool:
     return (dir_ / "results.npz").exists() and (dir_ / "summaries.json").exists()
 
 
+def to_model_input(batch: dict, device: torch.device) -> dict:
+    """The arrays of a collated batch as tensors on ``device``; names and
+    other non-arrays are dropped."""
+    out = {}
+    for key, value in batch.items():
+        if isinstance(value, dict):
+            out[key] = to_model_input(value, device)
+        elif isinstance(value, np.ndarray):
+            out[key] = torch.from_numpy(value).to(device)
+    return out
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def unbatch(batch: dict) -> dict:
+    """Item 0 of a collated batch of one; names are dropped."""
+    return {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+            for k, v in batch.items() if k != "name"}
+
+
 class EvalPipeline:
+    """A benchmark over the dataset named by ``conf['data']``: ``run`` caches
+    the model's predictions (``export_keys``), then scores them
+    (``run_eval``). ``timings`` holds host-clock milliseconds a pair, each
+    ended by a device synchronise: ``forward_ms`` and ``ransac_sweep_ms``."""
+
     default_conf: dict = {}
-    export_keys: list = []
+    export_keys: list = [
+        "keypoints0", "keypoints1", "keypoint_scores0", "keypoint_scores1",
+        "keypoint_valid0", "keypoint_valid1",
+        "matches0", "matches1", "matching_scores0", "matching_scores1",
+    ]
 
     def __init__(self, conf: dict | None = None, device="cuda"):
         """``conf`` is merged over the ``default_conf`` of the class and its
         bases; the model and the geometry run on ``device``."""
         self.conf = merge(collect_defaults(type(self)), conf)
-        self.device = device
-        self._init(self.conf)
-
-    def _init(self, conf: dict):
-        pass
+        self.device = resolve_device(device)
+        self.dataset = get_dataset(self.conf["data"]["name"])(self.conf["data"])
+        self.timings = {"forward_ms": [], "ransac_sweep_ms": []}
 
     def get_dataloader(self):
-        raise NotImplementedError
+        return self.dataset.get_data_loader("test")
 
     def get_predictions(self, experiment_dir: Path, model=None) -> Path:
-        raise NotImplementedError
+        """Run the model over the benchmark and cache what ``export_keys``
+        names, as the JAX export does: keypoints in original-image pixels,
+        float32 stored as float16."""
+        pred_file = Path(experiment_dir) / "predictions.npz"
+        if model is None:
+            model = load_model(self.conf["model"], self.conf.get("checkpoint"), self.device)
+        cache = defaultdict(list)
+        for batch in self.get_dataloader():
+            data = to_model_input(batch, self.device)
+            synchronize(self.device)
+            t = time.perf_counter()
+            with torch.inference_mode():
+                pred = model(data)
+            synchronize(self.device)
+            self.timings["forward_ms"].append((time.perf_counter() - t) * 1e3)
+            pred = {k: v.cpu().numpy() for k, v in pred.items() if k in self.export_keys}
+            for i, name in enumerate(batch["name"]):
+                cache["names"].append(name)
+                for key, value in pred.items():
+                    value = value[i]
+                    view = batch.get(f"view{key[-1]}", {})
+                    if key.startswith("keypoints") and "scales" in view:
+                        value = value / view["scales"][i]
+                    if value.dtype == np.float32:
+                        value = value.astype(np.float16)
+                    cache[key].append(value)
+        np.savez(pred_file, **{k: np.stack(v) if k != "names" else np.array(v)
+                               for k, v in cache.items()})
+        return pred_file
+
+    def load_predictions(self, pred_file: Path):
+        """A function of a batch of one: its cached prediction as float32,
+        keypoints back on the canvas of each view."""
+        with np.load(pred_file) as f:
+            cache = {k: f[k] for k in f.files}
+        row = {str(n): i for i, n in enumerate(cache.pop("names"))}
+
+        def prediction(batch: dict) -> dict:
+            pred = {k: v[row[batch["name"][0]]] for k, v in cache.items()}
+            pred = {k: v.astype(np.float32) if v.dtype == np.float16 else v
+                    for k, v in pred.items()}
+            for vid in ("0", "1"):
+                pred[f"keypoints{vid}"] = pred[f"keypoints{vid}"] * batch[f"view{vid}"]["scales"][0]
+            return pred
+
+        return prediction
+
+    def sweep(self, data: dict, pred: dict, estimate) -> dict:
+        """{threshold: ``estimate(data, pred, conf, device=...)``} at each
+        RANSAC threshold (``SWEEP`` when ``eval.ransac_th`` is -1, else that
+        one); the whole sweep's time goes to ``ransac_sweep_ms``."""
+        conf = self.conf["eval"]
+        thresholds = SWEEP if conf["ransac_th"] == -1.0 else [conf["ransac_th"]]
+        synchronize(self.device)
+        t = time.perf_counter()
+        out = {th: estimate(data, pred, merge(conf, {"ransac_th": th}), device=self.device)
+               for th in thresholds}
+        synchronize(self.device)
+        self.timings["ransac_sweep_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
 
     def run_eval(self, loader, pred_file: Path) -> tuple[dict, dict]:
         """(summaries, per-pair results) of the cached predictions."""

@@ -1,6 +1,7 @@
 """Per-pair evaluation of cached predictions (gluefactory_tpu/eval/utils.py):
-match precision under the ground-truth homography, weighted DLT with IRLS,
-RANSAC, and the AUC of a threshold sweep with the best threshold by mAA.
+match precision under the ground-truth homography or epipolar geometry,
+weighted DLT with IRLS, robust homography and relative pose, and the AUC of
+a threshold sweep with the best threshold by mAA. A failed estimate is NaN.
 
 Predictions come in as numpy arrays of one pair; the geometry runs on
 ``device`` (the card unless the caller passes 'cpu'). Points only: a
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..geometry.epipolar import generalized_epi_dist, relative_pose_error
 from ..geometry.homography import (
     compute_homography,
     homography_corner_error,
@@ -110,6 +112,43 @@ def eval_homography_robust(data: dict, pred: dict, conf: dict, device="cuda",
                                   _image_size(data, device)[None])
     n_inliers = int(est["inliers"].sum())
     return {"H_error_ransac": float(err[0]), "ransac_inl": n_inliers,
+            "ransac_inl%": float(n_inliers / max(valid.sum(), 1))}
+
+
+def eval_matches_epipolar(data: dict, pred: dict, device="cuda") -> dict:
+    """Matches and the share of them within 1e-4, 5e-4 and 1e-3 (normalized
+    units) of their epipolar lines under the ground-truth pose."""
+    device = resolve_device(device)
+    pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                              pred["matches0"], pred["matching_scores0"])
+    epi = generalized_epi_dist(_tensor(pts0, device)[None], _tensor(pts1, device)[None],
+                               data["camera0"].to(device), data["camera1"].to(device),
+                               data["T_0to1"].to(device))[0].cpu().numpy()
+    epi_m = epi[valid]
+    results = {"num_matches": int(valid.sum())}
+    for th in (1e-4, 5e-4, 1e-3):
+        results[f"epi_prec@{th:.0e}"] = float((epi_m < th).mean()) if valid.any() else np.nan
+    return results
+
+
+def eval_relative_pose_robust(data: dict, pred: dict, conf: dict, device="cuda") -> dict:
+    """The larger of the rotation and translation errors (degrees) of the
+    robust relative pose named by ``conf['estimator']`` (RANSAC), and its
+    inliers."""
+    device = resolve_device(device)
+    pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                              pred["matches0"], pred["matching_scores0"])
+    estimator = load_estimator("relative_pose", conf.get("estimator", "ransac"))(conf)
+    est_data = {"m_kpts0": _tensor(pts0, device), "m_kpts1": _tensor(pts1, device),
+                "camera0": data["camera0"], "camera1": data["camera1"],
+                "valid": torch.as_tensor(valid, device=device)}
+    est = estimator(est_data)
+    if not est["success"]:
+        return {"rel_pose_error": np.nan, "ransac_inl": 0, "ransac_inl%": 0.0}
+    M = est["M_0to1"]
+    r_err, t_err = relative_pose_error(data["T_0to1"].to(device), M.R, M.t)
+    n_inliers = int(est["inliers"].sum())
+    return {"rel_pose_error": float(torch.maximum(r_err, t_err)), "ransac_inl": n_inliers,
             "ransac_inl%": float(n_inliers / max(valid.sum(), 1))}
 
 

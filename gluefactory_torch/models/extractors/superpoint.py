@@ -12,7 +12,7 @@ convolution is rounded to bf16 and the bias added in bf16. Where a float32
 parameter meets a bf16 array (the ``post_relu_affine`` affines) the result is
 float32, by the type promotion both libraries share, and the next convolution
 casts back; the grey conversion reads the float32 image. The detector logits
-and the dense descriptors become float32 before NMS, top-k, the CoM readout
+and the dense descriptors become float32 before NMS, top-k, the sub-pixel readout
 and the normalisation."""
 
 from __future__ import annotations
@@ -24,7 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.interpolate import cell_logits_to_heatmap, sample_descriptors
-from ...ops.nms import com_refinement, select_top_k_keypoints, simple_nms
+from ...ops.nms import (
+    com_refinement,
+    select_top_k_keypoints,
+    simple_nms,
+    soft_argmax_refinement,
+)
 from ..base_model import BaseModel
 
 _GRAY = (0.299, 0.587, 0.114)  # cv2 / ITU-R 601 weights
@@ -139,8 +144,6 @@ class SuperPoint(BaseModel):
     def __init__(self, conf: dict | None = None):
         super().__init__(conf)
         conf = self.conf
-        if conf["refinement_radius"] > 0 and conf["refinement_mode"] != "com":
-            raise NotImplementedError("only refinement_mode='com' is ported")
         if conf["dtype"] not in COMPUTE_DTYPES:
             raise NotImplementedError(f"SuperPoint does not implement dtype={conf['dtype']!r} "
                                       f"(ported: {sorted(COMPUTE_DTYPES)})")
@@ -177,7 +180,9 @@ class SuperPoint(BaseModel):
         )
         if conf["refinement_radius"] > 0:
             # on the pre-NMS heatmap: NMS zeroes the window the refinement reads
-            keypoints = com_refinement(keypoints, heat_raw, conf["refinement_radius"])
+            refine = (com_refinement if conf["refinement_mode"] == "com"
+                      else soft_argmax_refinement)
+            keypoints = refine(keypoints, heat_raw, conf["refinement_radius"])
 
         da = F.relu(self.convDa(features))
         if conf["post_relu_affine"]:

@@ -65,10 +65,10 @@ def select_top_k_keypoints(
     return keypoints, kp_scores, valid
 
 
-def com_refinement(keypoints: torch.Tensor, scores: torch.Tensor,
-                   radius: int) -> torch.Tensor:
-    """Center-of-mass sub-pixel refinement over a (2r+1)^2 window of the
-    heatmap ``scores`` (B, H, W), with the window minimum subtracted."""
+def _window_values(keypoints: torch.Tensor, scores: torch.Tensor, radius: int):
+    """(values (B, K, W2) of the heatmap ``scores`` (B, H, W) in the
+    (2r+1)^2 window of each keypoint, clamped at the border; the window's
+    offsets (W2, 2))."""
     b, k, _ = keypoints.shape
     h, w = scores.shape[-2:]
     win = torch.arange(-radius, radius + 1, dtype=keypoints.dtype,
@@ -80,6 +80,23 @@ def com_refinement(keypoints: torch.Tensor, scores: torch.Tensor,
     yi = pos[..., 1].clamp(0, h - 1).long()
     vals = torch.take_along_dim(scores.reshape(b, -1), (yi * w + xi).reshape(b, -1),
                                 dim=1).reshape(b, k, -1)
+    return vals, offsets
+
+
+def com_refinement(keypoints: torch.Tensor, scores: torch.Tensor,
+                   radius: int) -> torch.Tensor:
+    """Center-of-mass sub-pixel refinement over a (2r+1)^2 window of the
+    heatmap ``scores`` (B, H, W), with the window minimum subtracted."""
+    vals, offsets = _window_values(keypoints, scores, radius)
     vals = (vals - vals.amin(dim=-1, keepdim=True)).clamp_min(0.0)
     weights = vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-12)
+    return keypoints + (weights[..., None] * offsets).sum(dim=-2)
+
+
+def soft_argmax_refinement(keypoints: torch.Tensor, scores: torch.Tensor, radius: int,
+                           temperature: float = 0.1) -> torch.Tensor:
+    """Sub-pixel refinement by the softmax-weighted mean position (at
+    ``temperature``) over a (2r+1)^2 window of the heatmap ``scores``."""
+    vals, offsets = _window_values(keypoints, scores, radius)
+    weights = torch.softmax(vals / temperature, dim=-1)
     return keypoints + (weights[..., None] * offsets).sum(dim=-2)

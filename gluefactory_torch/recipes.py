@@ -154,3 +154,39 @@ def hpatches_flagship_conf() -> dict:
     thresholds with 1024 hypotheses each. ``checkpoint`` is relative to the
     repository root. famB sets ``data.data_dir`` to its own set."""
     return copy.deepcopy(_HPATCHES_FLAGSHIP)
+
+
+_POSE_FLAGSHIP = {  # outputs/results/megadepth1500/sp0b_lg2_com_refine_pose/conf.yaml
+    "data": {
+        "name": "image_pairs",
+        "pairs": "pose-eval/pairs_calibrated.txt",
+        "root": "pose-eval/images",
+        "preprocessing": {"resize": 1600, "side": "long", "square_pad": True},
+        "test_batch_size": 1,
+        "num_workers": 2,
+    },
+    "model": {
+        "name": "two_view_pipeline",
+        "extractor": {"name": "extractors.superpoint", "max_num_keypoints": 1024,
+                      "detection_threshold": 0.005, "refinement_radius": 2,
+                      "refinement_mode": "com"},
+        "matcher": {"name": "matchers.lightglue", "filter_threshold": 0.1,
+                    "depth_confidence": -1, "width_confidence": -1,
+                    "save_layer_outputs": False, "checkpointed": False, "n_layers": 6},
+        "ground_truth": {"name": None},
+        "run_gt_in_forward": False,
+        "filter": {"name": "matchers.match_refiner"},
+    },
+    "eval": {"estimator": "ransac", "ransac_th": -1.0, "num_hypotheses": 2048, "lo_iters": 6},
+    "checkpoint": "weights/lg_tpu_stage2.f16.msgpack",
+}
+
+
+def pose_flagship_conf() -> dict:
+    """The flagship on the relative-pose benchmark, the conf of the published
+    pose numbers: the HPatches flagship (CoM readout, 6-layer LightGlue, the
+    ZNCC refiner) at 1024 keypoints on a 1600-pixel canvas, 5-point
+    LO-RANSAC swept over 6 thresholds with 2048 hypotheses and 6 LO steps
+    each, on the rendered set of ``scripts/generate_pose_eval_set.py`` under
+    ``data/pose-eval``."""
+    return copy.deepcopy(_POSE_FLAGSHIP)

@@ -14,12 +14,12 @@ from ..base_estimator import BaseEstimator
 
 
 def sample_minimal_sets(valid: torch.Tensor, num_hypotheses: int,
-                        generator: torch.Generator | None = None) -> torch.Tensor:
-    """(S, 4) indices drawn uniformly, with replacement, among the valid
+                        generator: torch.Generator | None = None, size: int = 4) -> torch.Tensor:
+    """(S, size) indices drawn uniformly, with replacement, among the valid
     correspondences (among all of them when none is valid)."""
     weights = valid.float()
     weights = torch.where(weights.sum() > 0, weights, torch.ones_like(weights))
-    return torch.multinomial(weights.expand(num_hypotheses, -1).contiguous(), 4,
+    return torch.multinomial(weights.expand(num_hypotheses, -1).contiguous(), size,
                              replacement=True, generator=generator)
 
 

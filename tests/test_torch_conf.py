@@ -112,8 +112,8 @@ def test_trainer_refuses_run_benchmarks():
     conf = stage2_conf()
     conf["data"].update(pool_size=1, source_size=[96, 96])
     conf["train"]["load_experiment"] = None  # stage 2's start is not committed
-    conf["train"]["run_benchmarks"] = [{"name": "megadepth1500"}]
-    with pytest.raises(NotImplementedError, match="megadepth1500"):
+    conf["train"]["run_benchmarks"] = [{"name": "eth3d"}]
+    with pytest.raises(NotImplementedError, match="eth3d"):
         Trainer(conf, device="cpu")
     conf["train"]["run_benchmarks"] = [{"name": "hpatches",
                                         "model": {"matcher": {"descriptor_dim": 128}}}]

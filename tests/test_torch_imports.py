@@ -15,6 +15,7 @@ for name in {blocked!r}:
     sys.modules[name] = None  # any import of it raises ImportError
 sys.path.insert(0, {root!r})
 import importlib, pkgutil
+import numpy as np
 import torch
 import chip_smoke
 import attention_variants
@@ -57,6 +58,20 @@ with tempfile.TemporaryDirectory() as tmp:
                                "eval": {{"num_hypotheses": 64}}}}, device="cpu")
     summaries, results = bench.run(Path(tmp) / "eval", model=model)
     assert len(results["names"]) == 10 and "H_error_ransac_mAA_i" in summaries, summaries
+
+    # the relative-pose benchmark, on a pose set rendered by the port
+    from gluefactory_torch.eval.megadepth1500 import MegaDepth1500Pipeline
+    from gluefactory_torch.scripts.generate_pose_eval_set import render_pose_scene, write_pairs
+
+    write_pairs(Path(tmp) / "pose", render_pose_scene(Path(tmp) / "pose" / "s0",
+                                                      np.random.default_rng(0), (160, 120)))
+    pose = MegaDepth1500Pipeline({{"data": {{"pairs": str(Path(tmp) / "pose" / "pairs_calibrated.txt"),
+                                            "root": str(Path(tmp) / "pose"),
+                                            "preprocessing": {{"resize": 160}}}},
+                                  "model": {{**conf, "name": "two_view_pipeline"}},
+                                  "eval": {{"num_hypotheses": 32}}}}, device="cpu")
+    summaries, results = pose.run(Path(tmp) / "pose_eval", model=model)
+    assert len(results["names"]) == 2 and "rel_pose_error_mAA" in summaries, summaries
 from gluefactory_torch.train import training
 
 tconf = {{"data": {{"name": "homographies_ondevice", "pool_size": 2, "source_size": [96, 96],

@@ -51,7 +51,18 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      20 pairs that the port renders (scripts/generate_pose_eval_set); 12 + 12 kernel
      launches a pair, summaries held to the JAX package's on the same set, pair 0's
      RANSAC on the card held to the CPU's; pair latency, sweep time, pairs per
-     second and peak memory printed (see check_pose).
+     second and peak memory printed (see check_pose);
+ 11. SuperPoint training: the recipes superpoint_train_ondevice (stage 0, from the
+     flax-style initialisation), superpoint_stage1_r3 (from weights/sp_tpu_stage0b)
+     and superpoint_stage2_soft_r4 (soft labels, from the initialisation) at full
+     resolution, every loss term and gradient on the card against the CPU; then
+     train.training(stage 1) at batch 32 cut to 2 epochs of 4 steps with
+     evaluations, checkpoint_best and a --restore, and stage 0 from scratch for 8
+     steps (see check_sp_training);
+ 12. adaptive LightGlue (recipes.hpatches_adaptive_conf: depth 0.95, width 0.99) on
+     phase 8's sets: summaries and exit layers held to the JAX package's, K1/K2
+     launched 2 (exit layer + 1) times a pair, host reads a pair counted (see
+     check_adaptive).
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Only torch and numpy are needed besides the repository.
@@ -914,6 +925,53 @@ class StepWatch:
         train.Trainer.step = self.original
 
 
+def check_restore(conf: dict, run: Path, resumed: Path, history: list, device, pool,
+                  tag: str) -> dict:
+    """``--restore`` of ``training(conf)`` from ``run``'s checkpoint_0_4 in a
+    new folder: the parameters and the optimizer state bit for bit as saved,
+    and the next step's loss as the first run's fifth (STAGE5_RESTORE_RTOL).
+    Returns what is printed."""
+    import argparse
+    import shutil
+
+    import numpy as np
+
+    from gluefactory_torch.train import training
+    from gluefactory_torch.utils.experiments import state_to_flat_dict
+    from gluefactory_torch.utils.weights import decode_msgpack
+
+    resumed.mkdir()
+    shutil.copy(run / "checkpoint_0_4.ckpt", resumed)
+    shutil.copy(run / "config.yaml", resumed)
+    saved = decode_msgpack((run / "checkpoint_0_4.ckpt").read_bytes())["state"]
+    compared = []
+
+    def same_as_saved(trainer):
+        if compared:
+            return
+        for part, obj in trainer.state().items():
+            now = state_to_flat_dict(obj)
+            if now.keys() != saved[part].keys():
+                raise AssertionError(f"restored {part}: keys differ from the checkpoint's")
+            for key, value in now.items():
+                ref = saved[part][key]
+                if value.dtype != ref.dtype or not np.array_equal(value, ref):
+                    raise AssertionError(f"restored {part} {key} differs from the checkpoint")
+            compared.append(len(now))
+
+    with StepWatch(same_as_saved):
+        _, again = training(conf, resumed, argparse.Namespace(restore=True), device=device,
+                            pool=pool, steps=1)
+    rel = abs(again[0]["loss/total"] - history[4]["loss/total"]) / abs(history[4]["loss/total"])
+    log(f"  {tag} --restore from checkpoint_0_4: {compared[0]} parameters and {compared[1]} "
+        f"optimizer arrays bit for bit; next step's loss {again[0]['loss/total']:.7f} against "
+        f"{history[4]['loss/total']:.7f} in the first run ({rel:.2g} relative, tolerance "
+        f"{STAGE5_RESTORE_RTOL})")
+    if not rel <= STAGE5_RESTORE_RTOL:
+        raise AssertionError(f"restored step: loss differs by {rel:.3g} relative")
+    return {"parameters": compared[0], "optimizer_arrays": compared[1], "loss_rel": rel}
+
+
 def check_stage5(device, fam_dir: Path, root: Path):
     """(a) The recipe's benchmark overlay in bf16 through the kernels on
     famA's first 8 sequences, held to the JAX package's summaries
@@ -925,9 +983,6 @@ def check_stage5(device, fam_dir: Path, root: Path):
     checkpoints, then --restore from the first epoch's checkpoint: parameters
     and Adam state bit for bit, the next step's loss as the first run's.
     Returns (the attention launches of the training run, what is printed)."""
-    import argparse
-    import shutil
-
     import numpy as np
     import torch
 
@@ -937,7 +992,6 @@ def check_stage5(device, fam_dir: Path, root: Path):
     from gluefactory_torch.ops import attention as A
     from gluefactory_torch.recipes import stage5_conf
     from gluefactory_torch.train import Trainer, training
-    from gluefactory_torch.utils.experiments import state_to_flat_dict
     from gluefactory_torch.utils.weights import decode_msgpack
 
     report = {}
@@ -1028,36 +1082,8 @@ def check_stage5(device, fam_dir: Path, root: Path):
         f"{[round(b, 1) for b in bench_s]} s; checkpoint_best epoch {best['epoch']}; kept "
         f"{others}")
 
-    resumed = root / "stage5_restored"
-    resumed.mkdir()
-    shutil.copy(run / "checkpoint_0_4.ckpt", resumed)
-    shutil.copy(run / "config.yaml", resumed)
-    saved = decode_msgpack((run / "checkpoint_0_4.ckpt").read_bytes())["state"]
-    compared = []
-
-    def same_as_saved(trainer):
-        if compared:
-            return
-        for part, obj in trainer.state().items():
-            now = state_to_flat_dict(obj)
-            if now.keys() != saved[part].keys():
-                raise AssertionError(f"restored {part}: keys differ from the checkpoint's")
-            for key, value in now.items():
-                ref = saved[part][key]
-                if value.dtype != ref.dtype or not np.array_equal(value, ref):
-                    raise AssertionError(f"restored {part} {key} differs from the checkpoint")
-            compared.append(len(now))
-
-    with StepWatch(same_as_saved):
-        _, again = training(conf, resumed, argparse.Namespace(restore=True), device=device,
-                            pool=pool, steps=1)
-    rel = abs(again[0]["loss/total"] - history[4]["loss/total"]) / abs(history[4]["loss/total"])
-    log(f"  (b) --restore from checkpoint_0_4: {compared[0]} parameters and {compared[1]} "
-        f"optimizer arrays bit for bit; next step's loss {again[0]['loss/total']:.7f} against "
-        f"{history[4]['loss/total']:.7f} in the first run ({rel:.2g} relative, tolerance "
-        f"{STAGE5_RESTORE_RTOL})")
-    if not rel <= STAGE5_RESTORE_RTOL:
-        raise AssertionError(f"restored step: loss differs by {rel:.3g} relative")
+    report["restore"] = check_restore(conf, run, root / "stage5_restored", history, device,
+                                      pool, "(b)")
     return launches, report
 
 
@@ -1220,6 +1246,364 @@ def check_pose(device, root: Path):
     return counts, report
 
 
+# --- phase 11: SuperPoint training ------------------------------------------------
+
+SP_RECIPES = ("sp_stage0_conf", "sp_stage1_conf", "sp_soft_conf")
+SP_POOL = 64  # the recipes' 768 procedural images cut to 64, as phases 7 and 9 cut theirs
+SP_CHECK_BATCH = 4  # (a): one engine batch at full resolution, on the card and on the CPU
+SP_LOSS_RTOL = 1e-3  # (a): each loss term of each pair, card against CPU
+SP_GRAD_RTOL = 1e-2  # (a): each gradient, of its tensor's largest (phase 7's bound)
+SP_SLOT_SHARE = 0.01  # (a): keypoint slots that may differ between card and CPU
+SP_SLOT_PX = 1e-3  # (a): a slot differs when its validity does or it moves farther
+# (b): the stage-1 recipe cut as phase 9 cuts stage 5: 250 -> 4 steps an epoch, 40 -> 2
+# epochs, an evaluation (4 val batches of 32) every 4 steps, every step logged
+SP_CUTS = {"data": {"pool_size": SP_POOL, "steps_per_epoch": 4},
+           "train": {"epochs": 2, "eval_every_iter": 4, "log_every_iter": 1}}
+SP_SCRATCH_STEPS = 8  # (c): stage 0 from scratch
+
+
+def sp_step(model, batch):
+    """(loss terms, gradients by parameter, keypoints and validity of both
+    views) of one forward and backward of an extractor-only pipeline, on the
+    host."""
+    model.zero_grad(set_to_none=True)
+    pred = model(batch)
+    losses, _ = model.loss(pred, batch)
+    losses["total"].mean().backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    slots = {k: pred[k].detach().cpu() for k in ("keypoints0", "keypoints1", "keypoint_valid0",
+                                                 "keypoint_valid1")}
+    model.zero_grad(set_to_none=True)
+    return {k: v.detach().cpu() for k, v in losses.items()}, grads, slots
+
+
+def sp_card_against_cpu(trainer, batch) -> dict:
+    """Phase 11(a) for one recipe: the same batch and parameters through the
+    card and the CPU."""
+    import copy
+
+    import torch
+
+    card = sp_step(trainer.model, batch)
+    cpu_model = copy.deepcopy(trainer.model).cpu()
+    cpu = sp_step(cpu_model, {k: (v.cpu() if torch.is_tensor(v) else
+                                  {kk: vv.cpu() for kk, vv in v.items()})
+                              for k, v in batch.items()})
+    loss_rel = {k: float(((card[0][k] - cpu[0][k]).abs() / cpu[0][k].abs().clamp_min(1e-12)).max())
+                for k in cpu[0]}
+    grad_rel = {n: float((card[1][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for n, g in cpu[1].items()}
+    differ = total = 0
+    for i in "01":
+        valid_c, valid_h = card[2][f"keypoint_valid{i}"], cpu[2][f"keypoint_valid{i}"]
+        moved = (card[2][f"keypoints{i}"] - cpu[2][f"keypoints{i}"]).abs().amax(-1) > SP_SLOT_PX
+        differ += int(((valid_c != valid_h) | ((valid_c | valid_h) & moved)).sum())
+        total += valid_h.numel()
+    worst = max(grad_rel, key=grad_rel.get)
+    return {"losses": {k: float(v.mean()) for k, v in cpu[0].items()}, "loss_rel": loss_rel,
+            "worst_grad": grad_rel[worst], "worst_param": worst,
+            "same_keys": card[1].keys() == cpu[1].keys() and card[0].keys() == cpu[0].keys(),
+            "slots_differ": differ, "slots": total}
+
+
+def check_sp_training(device, root: Path) -> dict:
+    """(a) Each SuperPoint recipe (stage 0 and soft from the port's flax-style
+    initialisation, stage 1 from sp_tpu_stage0b) on one engine batch of 4 at
+    full resolution: every loss term and gradient on the card against the
+    CPU, and the keypoint slots that differ. (b) ``training(sp_stage1_conf())``
+    at batch 32 cut by SP_CUTS: finite, no step skipped, validation without
+    match_AP, checkpoint_best by loss/total (min), a --restore bit for bit.
+    (c) ``sp_stage0_conf()`` from scratch for SP_SCRATCH_STEPS steps at batch
+    32, none skipped. Returns what is printed."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch import recipes
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets import get_dataset
+    from gluefactory_torch.datasets.homographies_ondevice import upload_pool
+    from gluefactory_torch.train import Trainer, training
+    from gluefactory_torch.utils.weights import decode_msgpack
+
+    report = {}
+    dataset = get_dataset("homographies_ondevice")(merge(recipes.sp_stage0_conf()["data"],
+                                                         {"pool_size": SP_POOL}))
+    t = time.perf_counter()
+    pool = upload_pool(dataset.build_pool("train"), device)
+    log(f"  pool of {SP_POOL} procedural images on the card in {time.perf_counter() - t:.1f} s")
+    seed = next(iter(dataset.get_data_loader("train")))
+    failures = []
+    for name in SP_RECIPES:
+        conf = merge(getattr(recipes, name)(), {"data": {"pool_size": SP_POOL,
+                                                         "train_batch_size": SP_CHECK_BATCH}})
+        trainer = Trainer(conf, device=device, pool=pool)
+        batch = trainer.dataset.make_batch(pool, seed)
+        t = time.perf_counter()
+        r = sp_card_against_cpu(trainer, batch)
+        report[name] = r
+        worst_loss = max(r["loss_rel"], key=r["loss_rel"].get)
+        start = "stage-0b blob" if conf["train"].get("load_experiment") else "flax-style init"
+        size = conf["data"]["image_size"]
+        log(f"  (a) {name} ({start}), batch {SP_CHECK_BATCH} at {size}x{size}, "
+            f"card against CPU in {time.perf_counter() - t:.1f} s: losses "
+            f"{json.dumps({k: round(v, 5) for k, v in r['losses'].items()})}; worst term "
+            f"{worst_loss} {r['loss_rel'][worst_loss]:.2g} relative (tolerance {SP_LOSS_RTOL}); "
+            f"worst gradient {r['worst_grad']:.2g} of its largest in {r['worst_param']} "
+            f"(tolerance {SP_GRAD_RTOL}); keypoint slots that differ {r['slots_differ']} of "
+            f"{r['slots']} (at most {SP_SLOT_SHARE:.0%})")
+        if not r["same_keys"] or r["loss_rel"][worst_loss] > SP_LOSS_RTOL \
+                or r["worst_grad"] > SP_GRAD_RTOL \
+                or r["slots_differ"] > SP_SLOT_SHARE * r["slots"]:
+            failures.append(name)
+        del trainer
+    if failures:
+        raise AssertionError(f"SuperPoint training, card against CPU: {failures}")
+    torch.cuda.empty_cache()
+
+    conf = merge(recipes.sp_stage1_conf(), SP_CUTS)
+    run = root / "sp_stage1"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, history = training(conf, run, device=device, pool=pool)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    if bad or any(h["skipped"] for h in history):
+        raise AssertionError(f"SuperPoint stage-1 steps: non-finite {bad}, skipped "
+                             f"{[h['skipped'] for h in history]}")
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    keys = set().union(*records)
+    need = {"loss/total", "loss/desc_caps", "loss/desc_nll", "loss/kp_loc0", "grad_norm", "lr",
+            "val/loss/total", "val/metric/kp_precision0", "val/metric/kp_recall0"}
+    if not need <= keys or "val/match_AP" in keys:
+        raise AssertionError(f"metrics.jsonl lacks {sorted(need - keys)} or has val/match_AP")
+    val = [r for r in records if "val/loss/total" in r]
+    best = decode_msgpack((run / "checkpoint_best.ckpt").read_bytes())
+    others = sorted(p.name for p in run.glob("checkpoint_*.ckpt") if "best" not in p.name)
+    if best["epoch"] != int(np.argmin([r["val/loss/total"] for r in val])) or len(others) > 3:
+        raise AssertionError(f"checkpoint_best of epoch {best['epoch']} for val losses "
+                             f"{[r['val/loss/total'] for r in val]}; kept {others}")
+    terms = sorted(k for k in history[0] if k.startswith("loss/"))
+    step_ms = [h["ms"] for h in history[1:]]
+    report["stage1"] = {"steps": len(history), "seconds": seconds, "peak_gib": peak / 2**30,
+                        "median_step_ms": float(np.median(step_ms)),
+                        "first": {k: history[0][k] for k in terms},
+                        "last": {k: history[-1][k] for k in terms},
+                        "val": [{k: r[k] for k in r if k.startswith("val/metric/kp_")}
+                                for r in val], "best_epoch": int(best["epoch"])}
+    log(f"  (b) stage 1 at batch {conf['data']['train_batch_size']}: {len(history)} steps in "
+        f"{seconds:.1f} s (2 evaluations of {conf['data']['val_steps']} val batches included); "
+        f"median step {report['stage1']['median_step_ms']:.1f} ms (steps 2-{len(history)}, host "
+        f"clock); peak memory {report['stage1']['peak_gib']:.2f} GiB")
+    for which in ("first", "last"):
+        rounded = {k: round(v, 5) for k, v in report["stage1"][which].items()}
+        log(f"  (b) {which} losses {json.dumps(rounded)}")
+    val_kp = [{k.split("/")[-1]: round(v, 4) for k, v in r.items()}
+              for r in report["stage1"]["val"]]
+    log(f"  (b) val kp precision / recall by evaluation: {val_kp}; checkpoint_best epoch "
+        f"{best['epoch']}; kept {others}")
+    report["stage1"]["restore"] = check_restore(conf, run, root / "sp_stage1_restored", history,
+                                                device, pool, "(b)")
+    torch.cuda.empty_cache()
+
+    conf = merge(recipes.sp_stage0_conf(), {"data": {"pool_size": SP_POOL}})
+    t = time.perf_counter()
+    _, history = training(conf, root / "sp_stage0", device=device, pool=pool,
+                          steps=SP_SCRATCH_STEPS)
+    seconds = time.perf_counter() - t
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    if bad or any(h["skipped"] for h in history) or len(history) != SP_SCRATCH_STEPS:
+        raise AssertionError(f"SuperPoint stage 0 from scratch: non-finite {bad}, skipped "
+                             f"{[h['skipped'] for h in history]}")
+    report["stage0"] = {"losses": [h["loss/total"] for h in history], "seconds": seconds}
+    log(f"  (c) stage 0 from scratch at batch {conf['data']['train_batch_size']}: "
+        f"{SP_SCRATCH_STEPS} steps in {seconds:.1f} s, none skipped; losses "
+        f"{[round(h['loss/total'], 4) for h in history]}; det_ce0 "
+        f"{[round(h['loss/det_ce0'], 4) for h in history]}; desc_hinge "
+        f"{[round(h['loss/desc_hinge'], 4) for h in history]}")
+    return report
+
+
+# --- phase 12: adaptive LightGlue on the HPatches sets -------------------------------------
+
+# The JAX package's adaptive summaries, exit layers and pruned shares on the same sets
+# (the sets of phase 8): JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_adaptive.py
+# --sets famA=... famB=..., the conf of phase 8 with depth_confidence 0.95 and
+# width_confidence 0.99 (recipes.hpatches_adaptive_conf), RANSAC seed 0, on the CPU
+ADAPTIVE_JAX = {
+    "famA": {"summaries": {"H_error_ransac_mAA": 90.126, "mprec@1px": 0.524,
+                           "mnum_keypoints": 892.2, "mnum_matches": 489.92},
+             "exit_histogram": [0, 0, 0, 14, 82, 4], "mean_pruned_share": 0.1117},
+    "famB": {"summaries": {"H_error_ransac_mAA": 94.609, "mprec@1px": 0.824,
+                           "mnum_keypoints": 1024.0, "mnum_matches": 612.747},
+             "exit_histogram": [0, 0, 0, 0, 109, 41], "mean_pruned_share": 0.0297},
+}
+EXIT_SHARE = 0.05  # half the sum of |exit-layer count differences|, of the pairs
+SYNC_PAIRS = 5  # pairs whose matcher runs under PyTorch's sync debug mode
+
+
+class MatcherWatch:
+    """Within ``with``: the exit layer, the prune counters and the validity
+    masks of every LightGlue forward of ``model``, kept on the card until
+    read."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __enter__(self):
+        def hook(module, args, out):
+            data = args[0]
+            self.calls.append({k: v for k, v in {**data, **out}.items() if k in (
+                "exit_layer", "prune0", "prune1", "keypoint_valid0", "keypoint_valid1")})
+
+        self.handle = self.model.matcher.register_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def read(self, n_layers: int) -> tuple[list[int], list[float]]:
+        """(exit layer, pruned share of the valid keypoints) of each call: a
+        token never dropped counts 1 + (the non-final layers that ran) in
+        ``prune*``."""
+        exits, shares = [], []
+        for call in self.calls:
+            exit_layer = int(call["exit_layer"])
+            counted = min(exit_layer + 1, n_layers - 1)
+            dropped = valid = 0
+            for i in "01":
+                v = call[f"keypoint_valid{i}"]
+                dropped += int(((call[f"prune{i}"] < 1 + counted) & v).sum())
+                valid += int(v.sum())
+            exits.append(exit_layer)
+            shares.append(dropped / max(valid, 1))
+        return exits, shares
+
+
+def count_syncs(model, dataset, device, n_pairs: int) -> float:
+    """Host reads a pair in the matcher: the synchronising calls that PyTorch's
+    sync debug mode reports while LightGlue runs, over the first pairs."""
+    import warnings
+
+    import torch
+
+    from gluefactory_torch.eval.eval_pipeline import to_model_input
+
+    counts = []
+    for i, batch in enumerate(dataset.get_data_loader("test")):
+        if i == n_pairs:
+            break
+        with torch.inference_mode():
+            data = to_model_input(batch, device)
+            pred = model.extractor(data["view0"]), model.extractor(data["view1"])
+            inputs = {**data, **{k + "0": v for k, v in pred[0].items()},
+                      **{k + "1": v for k, v in pred[1].items()}}
+            torch.cuda.synchronize(device)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    model.matcher(inputs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchronizing" in str(w.message) for w in caught))
+    return sum(counts) / len(counts)
+
+
+def check_adaptive(device, root: Path, fixed: dict) -> tuple[dict, dict]:
+    """``HPatchesPipeline`` with ``recipes.hpatches_adaptive_conf`` on phase 8's
+    famA and famB sets through the kernels: summaries within
+    HPATCHES_TOLERANCES of the JAX package's adaptive numbers, the histogram of
+    exit layers within EXIT_SHARE of the pairs of JAX's, and K1 and K2 each
+    launched sum over pairs of 2 (exit layer + 1) times. ``fixed`` is phase
+    8's report, printed beside. Returns (the attention launches, what is
+    printed)."""
+    import numpy as np
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets.hpatches import HPatchesDataset
+    from gluefactory_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_torch.eval.io import load_model
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import hpatches_adaptive_conf, hpatches_flagship_conf
+
+    conf = hpatches_adaptive_conf()
+    model = load_model(conf["model"], conf["checkpoint"], device)
+    n_layers = model.matcher.conf["n_layers"]
+    launches = {"attention_rotary": 0, "attention": 0}
+    report, failures = {}, []
+    for name, ref in ADAPTIVE_JAX.items():
+        pipeline = HPatchesPipeline(merge(conf, {"data": {"data_dir": str(root / name)}}),
+                                    device=device)
+        n_pairs = len(pipeline.dataset)
+        A.reset_launches()
+        t = time.perf_counter()
+        with MatcherWatch(model) as watch:
+            summaries, _ = pipeline.run(root / f"eval_adaptive_{name}", model=model,
+                                        overwrite=True)
+        seconds = time.perf_counter() - t
+        counts = dict(A.launches)
+        exits, shares = watch.read(n_layers)
+        expected = sum(2 * (e + 1) for e in exits)
+        hist = np.bincount(exits, minlength=n_layers).tolist()
+        moved = 0.5 * sum(abs(a - b) for a, b in zip(hist, ref["exit_histogram"]))
+        forward = float(np.median(pipeline.timings["forward_ms"]))
+        report[name] = {"pairs": n_pairs, "seconds": seconds, "summaries": summaries,
+                        "exit_histogram": hist, "mean_exit_layer": float(np.mean(exits)),
+                        "mean_pruned_share": float(np.mean(shares)), "median_forward_ms": forward,
+                        "launches": counts}
+        log(f"  {name}: {n_pairs} pairs in {seconds:.1f} s; mean exit layer "
+            f"{np.mean(exits):.3f}, exit layers {hist} (JAX {ref['exit_histogram']}: "
+            f"{moved:g} pairs moved, at most {EXIT_SHARE * n_pairs:g}); mean pruned share "
+            f"{np.mean(shares):.4f} (JAX {ref['mean_pruned_share']}); launches {counts} "
+            f"(sum of 2 (exit + 1): {expected}); median pair latency {forward:.1f} ms "
+            f"(phase 8, fixed depth: {fixed[name]['median_forward_ms']:.1f} ms)")
+        log(f"  {name} summaries: {json.dumps(summaries)}")
+        if counts != {"attention_rotary": expected, "attention": expected}:
+            failures.append(f"{name} launches {counts}, expected {expected} each")
+        if moved > EXIT_SHARE * n_pairs:
+            failures.append(f"{name} exit layers {hist} against JAX's {ref['exit_histogram']}")
+        for key, value in ref["summaries"].items():
+            tol = HPATCHES_TOLERANCES[key] * (abs(value) if key in RELATIVE else 1.0)
+            diff = float(summaries[key]) - value
+            verdict = "ok" if abs(diff) <= tol else "FAILS"
+            log(f"  {name} {key}: port {float(summaries[key]):.3f}, JAX {value:.3f}, difference "
+                f"{diff:+.3f} (tolerance {tol:.3f}) {verdict}; fixed depth on the card "
+                f"{float(fixed[name]['summaries'][key]):.3f}")
+            if verdict != "ok":
+                failures.append(f"{name} {key}: {float(summaries[key])} against {value}")
+        for key in launches:
+            launches[key] += counts[key]
+    if failures:
+        raise AssertionError(f"adaptive HPatches against the JAX package: {failures}")
+    famA = HPatchesDataset({"data_dir": str(root / "famA")})
+    plain_conf = hpatches_flagship_conf()
+    models = {"fixed": load_model(plain_conf["model"], plain_conf["checkpoint"], device),
+              "adaptive": model}
+    matcher_ms = {"fixed": [], "adaptive": []}
+    for which in ("fixed", "adaptive", "adaptive", "fixed"):  # in turns, on one card
+        stages = time_stages(models[which], famA, device, STAGE_PAIRS)
+        matcher_ms[which].append(stages["matcher_ms"])
+    report["matcher_ms"] = matcher_ms
+    report["syncs_per_pair"] = count_syncs(model, famA, device, SYNC_PAIRS)
+    report["fixed_syncs_per_pair"] = count_syncs(models["fixed"], famA, device, SYNC_PAIRS)
+    added = report["syncs_per_pair"] - report["fixed_syncs_per_pair"]
+    log(f"  famA, first {STAGE_PAIRS} pairs, LightGlue synchronised at entry and exit, fixed "
+        f"depth and adaptive in turns: median {matcher_ms['fixed'][0]:.1f} / "
+        f"{matcher_ms['fixed'][1]:.1f} ms a pair at fixed depth, "
+        f"{matcher_ms['adaptive'][0]:.1f} / {matcher_ms['adaptive'][1]:.1f} ms adaptive "
+        f"(phase 8: {fixed['stages']['matcher_ms']:.1f} ms); host reads in LightGlue "
+        f"{report['syncs_per_pair']:g} a pair over {SYNC_PAIRS} pairs, "
+        f"{report['fixed_syncs_per_pair']:g} at fixed depth: {added:g} added (at most "
+        f"{n_layers - 1})")
+    if added > n_layers - 1:
+        raise AssertionError(f"adaptive LightGlue: {added} host reads a pair added")
+    return launches, report
+
+
 # --- main --------------------------------------------------------------------
 
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
@@ -1318,18 +1702,30 @@ def main() -> int:
         pose_launches, _ = check_pose(device, Path(tmp) / "pose")
         log(f"  phase 10 took {time.perf_counter() - t:.1f} s")
 
+        log("phase 11: SuperPoint training, the three recipes at full width")
+        t = time.perf_counter()
+        check_sp_training(device, Path(tmp) / "sp")
+        log(f"  phase 11 took {time.perf_counter() - t:.1f} s")
+
+        log("phase 12: adaptive LightGlue on the HPatches sets at 1024 keypoints")
+        t = time.perf_counter()
+        adaptive_launches, _ = check_adaptive(device, Path(tmp) / "hpatches", report)
+        log(f"  phase 12 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
                              "hpatches": bench_launches["attention_rotary"],
                              "stage5": stage5_launches["attention_rotary"],
-                             "pose": pose_launches["attention_rotary"]},
+                             "pose": pose_launches["attention_rotary"],
+                             "adaptive": adaptive_launches["attention_rotary"]},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
                       "hpatches": bench_launches["attention"],
                       "stage5": stage5_launches["attention"],
-                      "pose": pose_launches["attention"]},
+                      "pose": pose_launches["attention"],
+                      "adaptive": adaptive_launches["attention"]},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

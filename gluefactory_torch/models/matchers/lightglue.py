@@ -6,7 +6,20 @@ Parameter names and the Wqkv layout follow the official PyTorch LightGlue
 package, whose weights these are: LayerNorm eps 1e-6 and the tanh GELU.
 Self-attention goes through kernel K1 (rotary fused) and cross-attention
 through kernel K2 (``ops/attention``) unless ``attention='xla'`` asks for
-the plain versions. Adaptive depth and width are not ported yet.
+the plain versions. Every dense layer starts as flax initialises it
+(models/utils/init.py).
+
+Adaptive inference (``depth_confidence``/``width_confidence`` > 0, the
+JAX package's ``_adaptive_layer``): after each layer but the last the
+token-confidence head of that layer scores every token. Width pruning masks
+the tokens that are confident and unmatchable out of the later layers'
+key/value sets (shapes stay fixed; the tokens are not compacted). Depth
+pruning stops once the share of confident tokens exceeds
+``depth_confidence`` for every pair of the batch: JAX's batch-wide
+``lax.cond`` is a Python branch here on a flag read from the device, one
+host read after each layer but the last. The exit layer's assignment head
+scores the matches, with the original validity masks; ``exit_layer`` and,
+with width pruning, the ``prune0``/``prune1`` counters are returned.
 
 ``dtype: bf16`` runs the transformer in bfloat16 with float32 parameters,
 rounding where flax does (not where ``torch.autocast`` would): each dense
@@ -33,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.assignment import filter_matches, sigmoid_log_double_softmax
 from ...ops.attention import attention, self_attention_rotary
 from ..base_model import BaseModel
+from ..utils.init import flax_reset_
 from ..utils.losses import nll_loss_no_bins
 from ..utils.metrics import matcher_metrics
 
@@ -56,6 +70,9 @@ class Dense(nn.Linear):
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        flax_reset_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype == torch.float32:
@@ -99,7 +116,7 @@ class LearnableFourierPositionalEncoding(nn.Module):
 
     def __init__(self, in_dim: int, head_dim: int):
         super().__init__()
-        self.Wr = nn.Linear(in_dim, head_dim // 2, bias=False)
+        self.Wr = Dense(in_dim, head_dim // 2, bias=False)
 
     def forward(self, kpts: torch.Tensor):
         proj = self.Wr(kpts)
@@ -170,8 +187,8 @@ class MatchAssignment(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dim = dim
-        self.final_proj = nn.Linear(dim, dim)
-        self.matchability = nn.Linear(dim, 1)
+        self.final_proj = Dense(dim, dim)
+        self.matchability = Dense(dim, 1)
 
     def forward(self, desc0, desc1, mask0=None, mask1=None):
         mdesc0 = self.final_proj(desc0) / self.dim**0.25
@@ -181,14 +198,17 @@ class MatchAssignment(nn.Module):
         z1 = self.matchability(desc1)[..., 0]
         return sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1), z0, z1
 
+    def get_matchability(self, desc: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.matchability(desc)[..., 0])
+
 
 class TokenConfidence(nn.Module):
     """Per-layer confidence that a token's assignment is final; trained by the
-    loss, read by adaptive depth (not ported yet)."""
+    loss, read by adaptive depth and width."""
 
     def __init__(self, dim: int):
         super().__init__()
-        self.token = nn.Sequential(nn.Linear(dim, 1), nn.Sigmoid())
+        self.token = nn.Sequential(Dense(dim, 1), nn.Sigmoid())
 
     def forward(self, desc0, desc1):
         return self.token(desc0)[..., 0], self.token(desc1)[..., 0]
@@ -236,15 +256,13 @@ class LightGlue(BaseModel):
         conf = self.conf
         if conf["add_scale_ori"]:
             raise NotImplementedError("add_scale_ori is not ported")
-        if conf["depth_confidence"] > 0 or conf["width_confidence"] > 0:
-            raise NotImplementedError("adaptive depth and width are not ported")
         if conf["dtype"] not in COMPUTE_DTYPES:
             raise NotImplementedError(f"LightGlue does not implement dtype={conf['dtype']!r} "
                                       f"(ported: {sorted(COMPUTE_DTYPES)})")
         self.compute_dtype = COMPUTE_DTYPES[conf["dtype"]]
         d, h, n = conf["descriptor_dim"], conf["num_heads"], conf["n_layers"]
         attn_impl = conf["attention"] or ("auto" if conf["flash"] else "xla")
-        self.input_proj = nn.Linear(conf["input_dim"], d)
+        self.input_proj = Dense(conf["input_dim"], d)
         self.posenc = LearnableFourierPositionalEncoding(2, d // h)
         self.transformers = nn.ModuleList(
             TransformerLayer(d, h, attn_impl, self.compute_dtype) for _ in range(n))
@@ -263,29 +281,88 @@ class LightGlue(BaseModel):
         cdt = self.compute_dtype
         desc0, desc1 = desc0.to(cdt), desc1.to(cdt)
         rot0, rot1 = tuple(r.to(cdt) for r in rot0), tuple(r.to(cdt) for r in rot1)
-        layers0, layers1 = [], []
-        for layer in self.transformers:
-            if self.conf["checkpointed"] and torch.is_grad_enabled():
-                desc0, desc1 = checkpoint(layer, desc0, desc1, rot0, rot1, mask0, mask1,
-                                          use_reentrant=False)
-            else:
-                desc0, desc1 = layer(desc0, desc1, rot0, rot1, mask0, mask1)
-            layers0.append(desc0)
-            layers1.append(desc1)
-        desc0, desc1 = desc0.float(), desc1.float()
-        scores, z0, z1 = self.log_assignment[-1](desc0, desc1, mask0, mask1)
-        pred = {"log_assignment": scores,
-                **filter_matches(scores, self.conf["filter_threshold"]),
-                "matchability0": torch.sigmoid(z0),
-                "matchability1": torch.sigmoid(z1)}
-        if self.conf["save_layer_outputs"]:
-            pred["desc_layers0"] = torch.stack(layers0).float()
-            pred["desc_layers1"] = torch.stack(layers1).float()
+        if self.conf["depth_confidence"] > 0 or self.conf["width_confidence"] > 0:
+            pred = self._adaptive(desc0, desc1, rot0, rot1, mask0, mask1)
+        else:
+            pred = self._fixed_depth(desc0, desc1, rot0, rot1, mask0, mask1)
         # invalid slots are unmatched by construction
         if mask0 is not None:
             pred["matches0"] = pred["matches0"].masked_fill(~mask0, -1)
         if mask1 is not None:
             pred["matches1"] = pred["matches1"].masked_fill(~mask1, -1)
+        return pred
+
+    def _run_layer(self, i: int, desc0, desc1, rot0, rot1, mask0, mask1):
+        layer = self.transformers[i]
+        if self.conf["checkpointed"] and torch.is_grad_enabled():
+            return checkpoint(layer, desc0, desc1, rot0, rot1, mask0, mask1,
+                              use_reentrant=False)
+        return layer(desc0, desc1, rot0, rot1, mask0, mask1)
+
+    def _head(self, i: int, desc0, desc1, mask0, mask1) -> dict:
+        """Layer ``i``'s assignment head on float32 descriptors: the
+        log-assignment, the filtered matches and the matchabilities."""
+        scores, z0, z1 = self.log_assignment[i](desc0, desc1, mask0, mask1)
+        return {"log_assignment": scores,
+                **filter_matches(scores, self.conf["filter_threshold"]),
+                "matchability0": torch.sigmoid(z0),
+                "matchability1": torch.sigmoid(z1)}
+
+    def _fixed_depth(self, desc0, desc1, rot0, rot1, mask0, mask1) -> dict:
+        layers0, layers1 = [], []
+        for i in range(self.conf["n_layers"]):
+            desc0, desc1 = self._run_layer(i, desc0, desc1, rot0, rot1, mask0, mask1)
+            layers0.append(desc0)
+            layers1.append(desc1)
+        pred = self._head(-1, desc0.float(), desc1.float(), mask0, mask1)
+        if self.conf["save_layer_outputs"]:
+            pred["desc_layers0"] = torch.stack(layers0).float()
+            pred["desc_layers1"] = torch.stack(layers1).float()
+        return pred
+
+    def confidence_threshold(self, layer_index: int) -> float:
+        """The early-exit threshold of a layer, 0.8 + 0.1 exp(-4 i / L),
+        computed in float32 as the JAX package does (on the host, so that
+        the card and the CPU compare against the same value)."""
+        x = torch.tensor(-4.0 * layer_index / self.conf["n_layers"], dtype=torch.float32)
+        return float((0.8 + 0.1 * torch.exp(x)).clamp(0.0, 1.0))
+
+    def _adaptive(self, desc0, desc1, rot0, rot1, mask0, mask1) -> dict:
+        """Adaptive depth and width (see the module's docstring)."""
+        conf = self.conf
+        n_layers = conf["n_layers"]
+        b, n0, n1 = desc0.shape[0], desc0.shape[1], desc1.shape[1]
+        act0 = mask0 if mask0 is not None else desc0.new_ones((b, n0), dtype=torch.bool)
+        act1 = mask1 if mask1 is not None else desc1.new_ones((b, n1), dtype=torch.bool)
+        prune0 = torch.ones((b, n0), dtype=torch.int32, device=desc0.device)
+        prune1 = torch.ones((b, n1), dtype=torch.int32, device=desc1.device)
+        for i in range(n_layers):
+            desc0, desc1 = self._run_layer(i, desc0, desc1, rot0, rot1, act0, act1)
+            f0, f1 = desc0.float(), desc1.float()
+            done = i == n_layers - 1
+            if not done:
+                c0, c1 = self.token_confidence[i](f0, f1)
+                th = self.confidence_threshold(i)
+                if conf["depth_confidence"] > 0:
+                    confident = torch.cat([torch.where(act0, c0 > th, True),
+                                           torch.where(act1, c1 > th, True)], dim=1)
+                    ratio = confident.float().mean(dim=1)
+                    exit_now = (ratio > conf["depth_confidence"]).all()
+                if conf["width_confidence"] > 0:
+                    keep = 1.0 - conf["width_confidence"]
+                    drop0 = (c0 > th) & (self.log_assignment[i].get_matchability(f0) < keep)
+                    drop1 = (c1 > th) & (self.log_assignment[i].get_matchability(f1) < keep)
+                    act0, act1 = act0 & ~drop0, act1 & ~drop1
+                    prune0 = prune0 + (~drop0).int()
+                    prune1 = prune1 + (~drop1).int()
+                done = conf["depth_confidence"] > 0 and bool(exit_now)  # the host read
+            if done:
+                break
+        pred = self._head(i, f0, f1, mask0, mask1)
+        # a fill, not a copy from the host (which would wait for the device)
+        pred["exit_layer"] = torch.full((), i, dtype=torch.int32, device=desc0.device)
+        if conf["width_confidence"] > 0:
+            pred.update(prune0=prune0, prune1=prune1)
         return pred
 
     def loss(self, pred: dict, data: dict):

@@ -18,10 +18,13 @@ def bilinear_sample(fmap: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     y0 = y.floor().long().clamp(0, h - 2)
     fx = (x - x0.to(x.dtype))[..., None]
     fy = (y - y0.to(y.dtype))[..., None]
-    flat = fmap.reshape(b, h * w, c)
+    flat = fmap.reshape(b * h * w, c)
+    base = (torch.arange(b, device=fmap.device) * (h * w)).reshape(b, *[1] * (points.ndim - 2))
 
     def gather(yy, xx):
-        return torch.take_along_dim(flat, (yy * w + xx)[..., None], dim=1)
+        # one index a point, not one a channel: CAPS gathers 81 taps a keypoint
+        index = base + yy * w + xx
+        return flat.index_select(0, index.reshape(-1)).reshape(*index.shape, c)
 
     top = gather(y0, x0) * (1 - fx) + gather(y0, x0 + 1) * fx
     bot = gather(y0 + 1, x0) * (1 - fx) + gather(y0 + 1, x0 + 1) * fx

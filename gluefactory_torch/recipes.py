@@ -11,6 +11,8 @@ from .settings import WEIGHTS_PATH
 STAGE2_WEIGHTS = WEIGHTS_PATH / "lg_tpu_stage2.f16.msgpack"
 # the stage-5 recipe's start: LightGlue and the soft-label SuperPoint
 STAGE5_WEIGHTS = WEIGHTS_PATH / "lg5_init_spsoft.f16.msgpack"
+# SuperPoint stage 0b, the start of SuperPoint stage 1 (its tree under ['extractor'])
+SP_STAGE0B_WEIGHTS = WEIGHTS_PATH / "sp_tpu_stage0b.f16.msgpack"
 
 _STAGE2 = {  # gluefactory_tpu/configs/superpoint+lightglue_stage2.yaml
     "data": {
@@ -190,3 +192,117 @@ def pose_flagship_conf() -> dict:
     each, on the rendered set of ``scripts/generate_pose_eval_set.py`` under
     ``data/pose-eval``."""
     return copy.deepcopy(_POSE_FLAGSHIP)
+
+
+def hpatches_adaptive_conf() -> dict:
+    """The HPatches flagship with adaptive LightGlue at the adaptive card's
+    thresholds (``superpoint+lightglue_adaptive.yaml``): early exit by token
+    confidence (``depth_confidence: 0.95``) and width pruning
+    (``width_confidence: 0.99``)."""
+    conf = hpatches_flagship_conf()
+    conf["model"]["matcher"].update(depth_confidence=0.95, width_confidence=0.99)
+    return conf
+
+
+_SP_DATA = {  # the on-device engine as the three SuperPoint recipes set it
+    "name": "homographies_ondevice",
+    "pool_size": 768,
+    "val_pool_size": 64,
+    "source_size": [448, 448],
+    "image_size": 320,
+    "max_gt_points": 192,
+    "train_batch_size": 32,
+    "val_batch_size": 32,
+    "steps_per_epoch": 250,
+    "val_steps": 4,
+    "homography": {"difficulty": 0.7, "translation": 0.3, "max_angle": 45.0},
+    "photometric": {"p": 0.95, "strength": 1.0},
+}
+_SP_EXTRACTOR = {"name": "extractors.superpoint", "max_num_keypoints": 512,
+                 "detection_threshold": 0.0005, "nms_radius": 4}
+_SP_DESC_LOSSES = {"desc_weight": 1.0, "desc_nll_weight": 1.0, "desc_nll_temp": 0.1,
+                   "desc_match_th": 3.0, "desc_caps_weight": 1.0, "desc_caps_window": 24.0}
+
+_SP_STAGE0 = {  # gluefactory_tpu/configs/superpoint_train_ondevice.yaml
+    "data": _SP_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {**_SP_EXTRACTOR, "training_outputs": True}},
+    "train": {
+        "seed": 7,
+        "epochs": 24,
+        "optimizer": "adam",
+        "lr": 0.001,
+        "lr_schedule": {"type": "exp", "start": 3000, "exp_div_10": 6000},
+        "eval_every_iter": 250,
+        "log_every_iter": 50,
+        "keep_last_checkpoints": 3,
+        "clip_grad": 5.0,
+        "best_key": "loss/total",
+    },
+}
+
+_SP_STAGE1 = {  # gluefactory_tpu/configs/superpoint_stage1_r3.yaml
+    "data": _SP_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {**_SP_EXTRACTOR, "refinement_radius": 2, "training_outputs": True,
+                            "loss": {"loc_weight": 3.0, "loc_radius": 2, "loc_max_dist": 4.0,
+                                     "peaky_weight": 0.5, "peaky_radius": 2,
+                                     **_SP_DESC_LOSSES}}},
+    "train": {
+        "seed": 23,
+        "epochs": 40,
+        "optimizer": "adam",
+        "lr": 0.0003,
+        "lr_schedule": {"type": "exp", "start": 2000, "exp_div_10": 8000},
+        "eval_every_iter": 250,
+        "save_every_iter": 1000,
+        "log_every_iter": 50,
+        "keep_last_checkpoints": 3,
+        "clip_grad": 5.0,
+        "best_key": "loss/total",
+        "load_experiment": "weights/sp_tpu_stage0b.f16.msgpack",
+    },
+}
+
+_SP_SOFT = {  # gluefactory_tpu/configs/superpoint_stage2_soft_r4.yaml
+    "data": _SP_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {**_SP_EXTRACTOR, "refinement_radius": 2, "refinement_mode": "com",
+                            "training_outputs": True,
+                            "loss": {"cell_labels": "soft", "cell_pos_weight": 32.0,
+                                     "loc_weight": 3.0, "loc_radius": 2, "loc_anchor": "gt",
+                                     "peaky_weight": 0.0, **_SP_DESC_LOSSES}}},
+    "train": {
+        "seed": 44,
+        "epochs": 40,
+        "optimizer": "adam",
+        "lr": 0.001,
+        "lr_schedule": {"type": "exp", "start": 3000, "exp_div_10": 8000},
+        "eval_every_iter": 250,
+        "save_every_iter": 1000,
+        "log_every_iter": 50,
+        "keep_last_checkpoints": 3,
+        "clip_grad": 5.0,
+        "best_key": "loss/total",
+    },
+}
+
+
+def sp_stage0_conf() -> dict:
+    """SuperPoint stage 0: detector and descriptor trained from scratch on
+    the on-device engine's exact corner ground truth, hard cell labels and
+    the dense cell hinge only."""
+    return copy.deepcopy(_SP_STAGE0)
+
+
+def sp_stage1_conf() -> dict:
+    """SuperPoint stage 1 (round 3): stage 0b (``SP_STAGE0B_WEIGHTS``)
+    continued with the whole loss stack: the softargmax localisation at the
+    GT corners, peakiness, the keypoint InfoNCE and CAPS beside the hinge."""
+    return copy.deepcopy(_SP_STAGE1)
+
+
+def sp_soft_conf() -> dict:
+    """SuperPoint from scratch with soft bilinear cell labels and the CoM
+    readout (round 4), the stage-1 descriptor losses, no peakiness."""
+    return copy.deepcopy(_SP_SOFT)

@@ -79,12 +79,13 @@ def test_unported_keys_refuse_any_other_value(name):
 @pytest.mark.parametrize("name,conf", [
     ("matchers.lightglue", {"dtype": "float16"}),  # float32 and bf16 are ported
     ("extractors.superpoint", {"dtype": "float16"}),
-    ("extractors.superpoint", {"has_detector": False}),
-    ("extractors.superpoint", {"dense_outputs": True}),
-    ("extractors.superpoint", {"training_outputs": True}),
+    # the switches and the loss are ported now; these cases hold the keys still refused
+    ("extractors.superpoint", {"weights": "superpoint_v1.pth"}),
+    ("extractors.superpoint", {"timeit": True}),
+    ("extractors.superpoint", {"dtype": "float64"}),
     ("matchers.lightglue", {"loss": {"nll_balancing": 0.25}}),
     ("matchers.lightglue", {"loss": {"fn": "focal"}}),
-    ("extractors.superpoint", {"loss": {"loc_weight": 1.0}}),
+    ("extractors.superpoint", {"dtype": "int8"}),
 ])
 def test_refused_settings_name_the_key(name, conf):
     key = next(iter(_leaves(conf)))
@@ -103,6 +104,21 @@ def test_recipes_still_build():
     for conf in (stage2_conf()["model"], flagship_conf()):
         model = build_model("two_view_pipeline", conf, device="cpu")
         assert model.matcher.conf["dtype"] == "float32"
+
+
+@pytest.mark.parametrize("name,conf", [
+    ("extractors.superpoint", {"has_detector": False}),
+    ("extractors.superpoint", {"has_descriptor": False}),
+    ("extractors.superpoint", {"dense_outputs": True}),
+    ("extractors.superpoint", {"training_outputs": True}),
+    ("extractors.superpoint", {"loss": {"loc_weight": 1.0, "cell_labels": "soft"}}),
+    ("matchers.lightglue", {"depth_confidence": 0.95, "width_confidence": 0.99}),
+])
+def test_ported_switches_build(name, conf):
+    """The keys this slice ported left ``unported_conf`` and build."""
+    model = build_model(name, conf, device="cpu")
+    for key, value in _leaves(conf).items():
+        assert _leaves(model.conf)[key] == value
 
 
 def test_trainer_refuses_run_benchmarks():

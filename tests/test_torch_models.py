@@ -231,7 +231,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
 
 
 def test_unported_options_raise():
+    # adaptive depth and width are ported (tests/test_torch_adaptive.py); add_scale_ori is not
     with pytest.raises(NotImplementedError):
-        build_model("matchers.lightglue", {"depth_confidence": 0.95}, device="cpu")
+        build_model("matchers.lightglue", {"add_scale_ori": True}, device="cpu")
     with pytest.raises(NotImplementedError):
         build_model("matchers.match_refiner", {"window_sampling": "static"}, device="cpu")

@@ -9,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
 RUNTIME_FILES = ["chip_smoke.py", "weights/lg_tpu_stage2.f16.msgpack",
-                 "weights/lg5_init_spsoft.f16.msgpack"]
+                 "weights/lg5_init_spsoft.f16.msgpack", "weights/sp_tpu_stage0b.f16.msgpack"]
 
 
 def _git(*args: str) -> subprocess.CompletedProcess:
@@ -52,3 +52,14 @@ def test_port_adds_no_large_binary_or_data_files(tracked):
         data = (ROOT / path).read_bytes()
         assert len(data) <= 200_000, f"{path}: {len(data)} bytes"
         assert b"\0" not in data[:8192], f"{path} is binary"
+
+
+def test_runtime_files_are_sent_to_the_gpu_machine():
+    """``.chiprunignore`` keeps files out of the copy sent to the GPU machine:
+    none of them is one the port reads there."""
+    ignored = [line.strip().rstrip("/") for line in
+               (ROOT / ".chiprunignore").read_text().splitlines()
+               if line.strip() and not line.startswith("#")]
+    for path in RUNTIME_FILES:
+        assert not any(path == pattern or path.startswith(pattern + "/")
+                       for pattern in ignored), f"{path} is kept off the GPU machine"

@@ -62,7 +62,20 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
  12. adaptive LightGlue (recipes.hpatches_adaptive_conf: depth 0.95, width 0.99) on
      phase 8's sets: summaries and exit layers held to the JAX package's, K1/K2
      launched 2 (exit layer + 1) times a pair, host reads a pair counted (see
-     check_adaptive).
+     check_adaptive);
+ 13. LightGlue stage 4 (recipes.stage4_conf) on the cached-feature engine at full
+     width: the feature pool extracted on the card from weights/sp_tpu_stage0b
+     (its first images held to the CPU's extraction, its cache file read back
+     bit for bit), step 0 on the kernel path against the plain path, then
+     train.training cut as phase 9 cuts stage 5, from weights/lg_tpu_stage2,
+     with checkpoint_best and a --restore (see check_stage4);
+ 14. LightGlue stage 1 (recipes.lg_homography_conf) on the host homography
+     dataset at full width (640x640 views, batch 32, 9 checkpointed layers, the
+     lg photometrics, 8 loader processes): step 0 on the kernel path against the
+     plain path, then 3 steps with the loader's wait, the step time and the
+     device's idle share (see check_stage1).
+Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
+load_model, by the run's name and by its checkpoint_best.ckpt.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Only torch and numpy are needed besides the repository.
@@ -557,7 +570,7 @@ def step0(trainer, pool, seed: int):
     confidence targets that the loss reads (LightGlue.layer_confidence_targets,
     False on invalid keypoints), the number of targets on valid keypoints)."""
     model = trainer.model
-    batch = trainer.dataset.make_batch(pool, seed)
+    batch = trainer.batch(pool, seed)
     model.zero_grad(set_to_none=True)
     pred = model(batch)
     losses, _ = model.loss(pred, batch)
@@ -1084,7 +1097,47 @@ def check_stage5(device, fam_dir: Path, root: Path):
 
     report["restore"] = check_restore(conf, run, root / "stage5_restored", history, device,
                                       pool, "(b)")
+    report["by_name"] = bench_the_run(conf, run, fam_dir, maa[best["epoch"]], device)
     return launches, report
+
+
+def bench_the_run(conf: dict, run: Path, fam_dir: Path, best_maa: float, device) -> dict:
+    """(c) The stage-5 run benchmarked as its users do (eval.hpatches' parser,
+    parse_eval_args, load_model): by its name under TRAINING_PATH and by its
+    checkpoint_best.ckpt, the run's config.yaml under the conf of the
+    recipe's benchmark overlay, on the same sequences; each mAA equal to the
+    overlay's reading of checkpoint_best in training."""
+    from gluefactory_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_torch.eval.io import get_eval_parser, parse_eval_args
+    from gluefactory_torch.recipes import hpatches_flagship_conf
+    from gluefactory_torch.utils import experiments
+
+    bench = conf["train"]["run_benchmarks"][0]
+    named = {**bench["conf"], "model": {"name": "two_view_pipeline", **bench["model"]}}
+    conf_file = run.parent / "stage5_bench.json"
+    conf_file.write_text(json.dumps(named))
+    experiments.TRAINING_PATH, training_path = run.parent, experiments.TRAINING_PATH
+    out = {}
+    try:
+        for how, checkpoint in (("name", run.name),
+                                ("ckpt", str(run / "checkpoint_best.ckpt"))):
+            args = get_eval_parser().parse_intermixed_args(
+                ["--conf", str(conf_file), "--checkpoint", checkpoint,
+                 f"data.data_dir={fam_dir}"])
+            bconf = parse_eval_args("hpatches", args, HPatchesPipeline.default_conf,
+                                    hpatches_flagship_conf())
+            t = time.perf_counter()
+            summaries, _ = HPatchesPipeline(bconf, device=device).run(
+                run.parent / f"bench_by_{how}", overwrite=True)
+            out[how] = float(summaries["H_error_ransac_mAA"])
+            log(f"  (c) --checkpoint {checkpoint} ({how}): mAA {out[how]:.3f} in "
+                f"{time.perf_counter() - t:.1f} s; the overlay's reading of checkpoint_best "
+                f"in training {best_maa:.3f}")
+    finally:
+        experiments.TRAINING_PATH = training_path
+    if any(v != best_maa for v in out.values()):
+        raise AssertionError(f"the run benchmarked by name and .ckpt: {out}, overlay {best_maa}")
+    return out
 
 
 # --- phase 10: the relative-pose benchmark at full width -----------------------------
@@ -1606,6 +1659,264 @@ def check_adaptive(device, root: Path, fixed: dict) -> tuple[dict, dict]:
 
 # --- main --------------------------------------------------------------------
 
+# --- phase 13: LightGlue stage 4 on the cached-feature engine ---------------------------
+
+# the recipe cut as phase 9 cuts stage 5: 250 -> 4 steps an epoch, 32 -> 2 epochs, an
+# evaluation (its 4 val batches) at each epoch end; the pool is the recipe's 768 + 64
+STAGE4_CUTS = {"data": {"steps_per_epoch": 4},
+               "train": {"epochs": 2, "eval_every_iter": 4, "log_every_iter": 1}}
+STAGE4_CPU_IMAGES = 16  # (a): pool images extracted on the CPU too
+STAGE4_SLOT_PX = 1e-3  # (a): a keypoint on the card against the CPU
+STAGE4_SLOT_SHARE = 1e-3  # (a): slots whose validity may differ
+STAGE4_DESC_ATOL = 2e-3  # (a): float16 descriptors on the card against the CPU
+ENGINE_SEEDS = 8  # (c): batches the engine makes alone, timed
+
+
+def check_stage4(device, root: Path) -> tuple[dict, dict]:
+    """(a) The cached-feature pool of ``recipes.stage4_conf`` (768 + 64 images,
+    448x448, SuperPoint stage 0b with the CoM readout, 512 keypoints) extracted
+    on the card, under a temporary DATA_PATH: its first STAGE4_CPU_IMAGES
+    images against the same extraction on the CPU, its cache file read back
+    bit for bit. (b) Step 0 (batch 32, 6 layers, float32) on the kernel path
+    against the plain path from lg_tpu_stage2, phase 7's gate. (c)
+    ``training`` cut by STAGE4_CUTS from the recipe's lg_tpu_stage2: finite,
+    none skipped, 12 + 12 launches a step, checkpoint_best, a --restore bit
+    for bit; the median step, the peak memory and the engine's share of a
+    step. Returns (the attention launches of the training run, what is
+    printed)."""
+    from gluefactory_torch import settings
+
+    report = {}
+    data_path, settings.DATA_PATH = settings.DATA_PATH, root / "data"  # not the repository's
+    try:
+        return _check_stage4(device, root, report)
+    finally:
+        settings.DATA_PATH = data_path
+
+
+def _check_stage4(device, root: Path, report: dict) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets import get_dataset
+    from gluefactory_torch.datasets.homographies_ondevice import upload_pool
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import stage4_conf
+    from gluefactory_torch.train import Trainer, training
+    from gluefactory_torch.utils.weights import decode_msgpack
+
+    from gluefactory_torch.datasets.homographies_ondevice import OnDeviceHomographyDataset
+
+    conf = merge(stage4_conf(), STAGE4_CUTS)
+    dataset = get_dataset(conf["data"]["name"])(conf["data"])
+    drawn, draw = [], OnDeviceHomographyDataset.build_pool
+
+    def timed_draw(self, *args, **kwargs):  # the source images, drawn on the host
+        t0 = time.perf_counter()
+        out = draw(self, *args, **kwargs)
+        drawn.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    OnDeviceHomographyDataset.build_pool = timed_draw
+    try:
+        host = {split: dataset.build_pool(split, device) for split in ("train", "val")}
+    finally:
+        OnDeviceHomographyDataset.build_pool = draw
+    torch.cuda.synchronize()
+    report["extract_s"] = time.perf_counter() - t
+    report["draw_s"] = sum(drawn)
+    cache = {split: dataset.pool_cache_path(split) for split in host}
+    log(f"  (a) pool of {conf['data']['pool_size']} + {conf['data']['val_pool_size']} images "
+        f"in {report['extract_s']:.1f} s: {report['draw_s']:.1f} s drawing the source images "
+        f"on the host, the rest extracting on the card and caching: "
+        f"{int(host['train']['keypoint_valid'].sum())} keypoints in the train pool; cache "
+        f"{[p.name for p in cache.values()]}")
+    for split, path in cache.items():
+        with np.load(path) as blob:
+            again = {k: blob[k] for k in blob.files}
+        if again.keys() != host[split].keys() or any(
+                again[k].dtype != v.dtype or not np.array_equal(again[k], v)
+                for k, v in host[split].items()):
+            raise AssertionError(f"the {split} pool cache does not read back bit for bit")
+    cpu_conf = merge(conf["data"], {"pool_size": STAGE4_CPU_IMAGES, "pool_cache": False})
+    cpu_set = get_dataset(conf["data"]["name"])(cpu_conf)
+    t = time.perf_counter()
+    cpu = cpu_set.build_pool("train", "cpu")
+    card = {k: v[:STAGE4_CPU_IMAGES] for k, v in host["train"].items() if k != "source_size"}
+    both = card["keypoint_valid"] & cpu["keypoint_valid"]
+    dist = np.abs(card["keypoints"] - cpu["keypoints"]).max(-1)
+    same = both & (dist <= 0.5)  # the same detection in the same slot
+    valid_share = float((card["keypoint_valid"] != cpu["keypoint_valid"]).mean())
+    moved_share = 1 - same.sum() / max(both.sum(), 1)
+    kp_err = float(dist[same].max())
+    desc_err = float(np.abs(card["descriptors"][same].astype(np.float32)
+                            - cpu["descriptors"][same].astype(np.float32)).max())
+    report["card_vs_cpu"] = {"validity_share": valid_share, "moved_share": moved_share,
+                             "kp_px": kp_err, "desc": desc_err}
+    log(f"  (a) first {STAGE4_CPU_IMAGES} images on the CPU ({time.perf_counter() - t:.1f} s): "
+        f"validity differs on {valid_share:.2g} of slots, {moved_share:.2g} of the slots valid "
+        f"on both hold another detection, keypoints within {kp_err:.2g} px and descriptors "
+        f"within {desc_err:.2g} on the rest (tolerances {STAGE4_SLOT_SHARE}, "
+        f"{STAGE4_SLOT_SHARE}, {STAGE4_SLOT_PX}, {STAGE4_DESC_ATOL})")
+    if not (valid_share <= STAGE4_SLOT_SHARE and moved_share <= STAGE4_SLOT_SHARE
+            and kp_err <= STAGE4_SLOT_PX and desc_err <= STAGE4_DESC_ATOL):
+        raise AssertionError(f"stage-4 pool on the card against the CPU: {report['card_vs_cpu']}")
+
+    pool = upload_pool(host["train"], device)
+    seed0 = next(iter(dataset.get_data_loader("train")))
+    runs = {}
+    for impl in ("xla", "auto"):
+        impl_conf = merge(conf, {"model": {"matcher": {"attention": impl}}})
+        runs[impl] = step0(Trainer(impl_conf, device=device, pool=pool), pool, seed0)
+    reading = against(runs["xla"], runs["auto"])
+    report["step0"] = {k: v for k, v in reading.items() if k != "passes"}
+    log(f"  (b) step 0: loss {runs['auto'][0]:.6f} on the kernel path, {runs['xla'][0]:.6f} on "
+        f"the plain path ({reading['loss_rel']:.2g} relative, tolerance 1e-4); gradients "
+        f"outside {CONFIDENCE_HEADS}* within {reading['worst']:.2g} of their largest (gate "
+        f"{TRAIN_GRAD_RTOL}; median {reading['median']:.2g}); confidence targets flipped "
+        f"{reading['flips']} of {reading['targets']}")
+    if reading["loss_rel"] > 1e-4 or not reading["passes"]:
+        raise AssertionError(f"stage-4 step 0: {reading}")
+    del runs
+    torch.cuda.empty_cache()
+
+    run = root / "stage4"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t = time.perf_counter()
+    with StepWatch() as watch:
+        trainer, history = training(conf, run, device=device, pool=pool)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    if bad or any(h["skipped"] for h in history):
+        raise AssertionError(f"stage-4 steps: non-finite {bad}, skipped "
+                             f"{[h['skipped'] for h in history]}")
+    n_steps = conf["train"]["epochs"] * conf["data"]["steps_per_epoch"]
+    if watch.launches != [{"attention_rotary": 12, "attention": 12}] * n_steps:
+        raise AssertionError(f"stage-4 kernel launches by step: {watch.launches}")
+    best = decode_msgpack((run / "checkpoint_best.ckpt").read_bytes())
+    engine_ms = []
+    for s in range(ENGINE_SEEDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.dataset.make_batch(pool, 1000 + s)
+        torch.cuda.synchronize()
+        engine_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median([h["ms"] for h in history[1:]]))
+    report.update(steps=len(history), seconds=seconds, median_step_ms=step_ms,
+                  peak_gib=peak / 2**30, engine_ms=float(np.median(engine_ms)),
+                  best_epoch=int(best["epoch"]), launches=launches)
+    log(f"  (c) {len(history)} steps in {seconds:.1f} s (4 evaluations included): losses "
+        f"{[round(h['loss/total'], 4) for h in history]}; median step {step_ms:.1f} ms "
+        f"(steps 2-{len(history)}, host clock), the engine {report['engine_ms']:.2f} ms of it "
+        f"({100 * report['engine_ms'] / step_ms:.1f}%, median of {ENGINE_SEEDS} batches alone); "
+        f"peak memory {report['peak_gib']:.2f} GiB; launches {launches} (12 + 12 a step); "
+        f"checkpoint_best epoch {best['epoch']} by {conf['train']['best_key']}")
+    report["restore"] = check_restore(conf, run, root / "stage4_restored", history, device,
+                                      pool, "(c)")
+    return launches, report
+
+
+# --- phase 14: LightGlue stage 1 on the host homography dataset ---------------------------
+
+STAGE1_STEPS = 3  # steps of the recipe at full width; the last two are profiled
+
+
+def check_stage1(device, root: Path) -> tuple[dict, dict]:
+    """``recipes.lg_homography_conf`` (synthetic 800x600 scenes warped onto
+    640x640 views with the lg photometrics by 8 loader processes, batch 32,
+    SuperPoint frozen from weights/sp_tpu_stage0b at 512 keypoints, 9-layer
+    LightGlue from its initialisation with checkpointed layers): step 0 on the
+    kernel path against the plain path on the loader's first batch (loss
+    within 1e-4 relative); then STAGE1_STEPS steps of the Trainer on its
+    loader, each step's wait for the loader and its host-clock time, K1/K2
+    launches a step (the checkpointed layers run their forward again in the
+    backward pass), and the device's busy and idle shares over the last
+    steps from torch.profiler. Returns (the attention launches of the steps,
+    what is printed)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import SP_STAGE0B_WEIGHTS, lg_homography_conf
+    from gluefactory_torch.train import Trainer, train_step
+
+    report = {}
+    conf = merge(lg_homography_conf(), {"train": {"load_experiment": str(SP_STAGE0B_WEIGHTS)}})
+    trainers = {impl: Trainer(merge(conf, {"model": {"matcher": {"attention": impl}}}),
+                              device=device) for impl in ("auto", "xla")}
+    loader = iter(trainers["auto"].loader("train"))
+    t = time.perf_counter()
+    first = next(loader)
+    report["first_batch_s"] = time.perf_counter() - t
+    log(f"  first batch of {len(first['name'])} pairs from {conf['data']['num_workers']} loader "
+        f"processes in {report['first_batch_s']:.2f} s (nothing to overlap yet)")
+    loss0 = {impl: step0(trainer, None, first)[0] for impl, trainer in trainers.items()}
+    rel0 = abs(loss0["auto"] - loss0["xla"]) / abs(loss0["xla"])
+    report["step0_loss_rel"] = rel0
+    log(f"  step 0: loss {loss0['auto']:.6f} on the kernel path, {loss0['xla']:.6f} on the "
+        f"plain path ({rel0:.2g} relative, tolerance 1e-4)")
+    if not rel0 <= 1e-4:
+        raise AssertionError(f"stage-1 step 0: losses differ by {rel0:.3g} relative")
+    trainer = trainers.pop("auto")
+    del trainers
+    torch.cuda.empty_cache()
+
+    steps, per_step = [], []
+    A.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch, wait = first, 0.0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = 0.0
+    for i in range(STAGE1_STEPS):
+        if i == 1:
+            prof.start()
+            t_window = time.perf_counter()
+        if i > 0:
+            t = time.perf_counter()
+            batch = next(loader)
+            wait = (time.perf_counter() - t) * 1e3
+        counts = dict(A.launches)
+        t = time.perf_counter()
+        scalars = train_step(trainer.model, trainer.optimizer, trainer.batch(None, batch))
+        torch.cuda.synchronize()
+        steps.append({**scalars, "data_ms": wait, "ms": (time.perf_counter() - t) * 1e3})
+        per_step.append({k: A.launches[k] - counts[k] for k in counts})
+    window = time.perf_counter() - t_window
+    prof.stop()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = dict(A.launches)
+    bad = [(i, k) for i, h in enumerate(steps) for k, v in h.items() if not np.isfinite(v)]
+    if bad or any(h["skipped"] for h in steps):
+        raise AssertionError(f"stage-1 steps: non-finite {bad}")
+    n_layers = trainer.model.matcher.conf["n_layers"]
+    expected = {"attention_rotary": 4 * n_layers, "attention": 4 * n_layers}
+    if per_step != [expected] * STAGE1_STEPS:
+        raise AssertionError(f"stage-1 kernel launches by step: {per_step}, expected {expected}")
+    report.update(steps=steps, launches=launches, busy_s=busy, window_s=window,
+                  idle_share=1 - busy / window,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  {STAGE1_STEPS} steps: losses {[round(h['loss/total'], 4) for h in steps]}; step "
+        f"{[round(h['ms'], 1) for h in steps]} ms, the wait for the loader before it "
+        f"{[round(h['data_ms'], 1) for h in steps]} ms (host clock); steps 2-{STAGE1_STEPS}: "
+        f"device busy {busy:.2f} s of {window:.2f} s, idle {100 * report['idle_share']:.1f}% "
+        f"(torch.profiler); peak memory {report['peak_gib']:.2f} GiB; launches {per_step[0]} "
+        f"a step ({n_layers} layers, 2 + 2 in each forward and again in its checkpointed "
+        "recompute)")
+    return launches, report
+
+
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
     """(kernel, "N registers, spill stores/loads") for each kernel in the
     output of nvcc -Xptxas=-v; the name is the mangled one cut after the
@@ -1712,20 +2023,34 @@ def main() -> int:
         adaptive_launches, _ = check_adaptive(device, Path(tmp) / "hpatches", report)
         log(f"  phase 12 took {time.perf_counter() - t:.1f} s")
 
+        log("phase 13: LightGlue stage 4 on the cached-feature engine at full width")
+        t = time.perf_counter()
+        stage4_launches, _ = check_stage4(device, Path(tmp) / "stage4")
+        log(f"  phase 13 took {time.perf_counter() - t:.1f} s")
+
+        log("phase 14: LightGlue stage 1 on the host homography dataset at full width")
+        t = time.perf_counter()
+        stage1_launches, _ = check_stage1(device, Path(tmp) / "stage1")
+        log(f"  phase 14 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
                              "hpatches": bench_launches["attention_rotary"],
                              "stage5": stage5_launches["attention_rotary"],
                              "pose": pose_launches["attention_rotary"],
-                             "adaptive": adaptive_launches["attention_rotary"]},
+                             "adaptive": adaptive_launches["attention_rotary"],
+                             "stage4": stage4_launches["attention_rotary"],
+                             "stage1": stage1_launches["attention_rotary"]},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
                       "hpatches": bench_launches["attention"],
                       "stage5": stage5_launches["attention"],
                       "pose": pose_launches["attention"],
-                      "adaptive": adaptive_launches["attention"]},
+                      "adaptive": adaptive_launches["attention"],
+                      "stage4": stage4_launches["attention"],
+                      "stage1": stage1_launches["attention"]},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

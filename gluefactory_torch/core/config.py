@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import copy
 import json
+from pathlib import Path
 
 
 def merge(base: dict, override: dict | None) -> dict:
@@ -59,3 +60,22 @@ def dotlist_to_dict(dotlist: list[str]) -> dict:
             node = node.setdefault(part, {})
         node[leaf] = parse_value(value)
     return out
+
+
+def load_conf(path: str | Path) -> dict:
+    """A conf file: JSON (whatever its suffix: the port writes a run's
+    ``config.yaml`` as JSON text), else YAML where the ``yaml`` package is
+    installed (the GPU machine has none: give it JSON)."""
+    path = Path(path)
+    text = path.read_text()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        if path.suffix == ".json":
+            raise
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(f"{path} is YAML and this machine has no yaml package: "
+                          "give the conf as JSON") from e
+    return yaml.safe_load(text) or {}

@@ -15,19 +15,37 @@ feed the JAX engine's numbers. The pool is procedural: the JAX engine draws
 its scenes with cv2, which the GPU machine does not have, so
 ``generate_structured_scene`` rasterises the same scenes with numpy (same
 random draws, same corner ground truth, pixels that differ on shape edges).
-A pool from a folder of real images (``data_dir``) is not ported yet."""
+With ``data_dir`` the pool is a folder of images instead (binary PPM/PGM,
+the files ``utils/image.read_image`` reads), without corner ground truth.
+
+``OnDeviceCachedFeatureDataset`` (``homographies_ondevice_cached``) keeps
+an extractor's features of the pool instead of its images: extracted once
+on the card, cached as ``.npz`` under ``DATA_PATH/engine_pool_cache`` (the
+JAX package's file name and layout, so each package reads the other's),
+and each step warps the keypoints by the two homographies and perturbs the
+descriptors, so a step runs only the matcher."""
 
 from __future__ import annotations
 
+import hashlib
+import json
+import logging
+import multiprocessing as mp
+import os
+from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 from typing import ClassVar
 
 import numpy as np
 import torch
 
+from .. import settings
 from ..geometry.homography import homography_draws, homography_from_draws, warp_points
 from ..ops.photometric import photometric_apply, photometric_draws
 from ..ops.warp import warp_image
 from .base_dataset import BaseDataset
+
+logger = logging.getLogger(__name__)
 
 # --- numpy rasterisation of the scene primitives (cv2's filled shapes), gray or colour
 
@@ -51,11 +69,23 @@ def fill_polygon(img, pts, color):
     sl, px, py = win
     inside = np.zeros(px.shape, bool)
     on_edge = np.zeros(px.shape, bool)
+    x0, y0 = px[0, 0], py[0, 0]
+    h, w = px.shape
+
+    def rows(lo, hi):  # the window's rows with centres in [lo, hi]
+        return slice(max(int(np.ceil(lo - y0)), 0), max(min(int(np.floor(hi - y0)) + 1, h), 0))
+
     for (xa, ya), (xb, yb) in zip(pts, np.roll(pts, -1, axis=0)):
-        crosses = (ya > py) != (yb > py)
-        xcross = (xb - xa) * (py - ya) / np.where(yb == ya, 1e-12, yb - ya) + xa
-        inside ^= crosses & (px < xcross)
-        on_edge |= _segment_distance(px, py, (xa, ya), (xb, yb)) <= 0.5
+        # only the rows an edge crosses, and the pixels within half a pixel of
+        # its bounding box, can change: the same pixels as testing every one
+        r = rows(min(ya, yb), max(ya, yb))
+        crosses = (ya > py[r]) != (yb > py[r])
+        xcross = (xb - xa) * (py[r] - ya) / np.where(yb == ya, 1e-12, yb - ya) + xa
+        inside[r] ^= crosses & (px[r] < xcross)
+        r = rows(min(ya, yb) - 0.5, max(ya, yb) + 0.5)
+        c = slice(max(int(np.ceil(min(xa, xb) - 0.5 - x0)), 0),
+                  max(min(int(np.floor(max(xa, xb) + 0.5 - x0)) + 1, w), 0))
+        on_edge[r, c] |= _segment_distance(px[r, c], py[r, c], (xa, ya), (xb, yb)) <= 0.5
     img[sl][inside | on_edge] = color
 
 
@@ -217,9 +247,20 @@ def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
     return img, pts, valid
 
 
+POOL_PROCESS_MIN = 64  # procedural pools at least this large are drawn by forked processes
+
+
+def _pool_scene(job: tuple) -> tuple:
+    """Scene ``i`` of a procedural pool as (uint8 image, points, validity)."""
+    seed, i, w, h, k = job
+    img, pts, valid = generate_structured_scene(np.random.default_rng((seed, i)), (w, h), k)
+    return np.clip(img * 255, 0, 255).astype(np.uint8), pts, valid
+
+
 class OnDeviceHomographyDataset(BaseDataset):
     """Pool-on-the-card homography pair engine."""
 
+    device_engine: ClassVar[bool] = True
     default_conf: ClassVar[dict] = {
         "name": "homographies_ondevice",
         "pool_size": 512,
@@ -227,9 +268,12 @@ class OnDeviceHomographyDataset(BaseDataset):
         "source_size": [448, 448],  # pool image size (w, h)
         "image_size": 320,  # canvas of each view
         "max_gt_points": 192,
-        "data_dir": None,  # a folder of real images for the pool: not ported
+        "data_dir": None,  # a folder of images for the pool (else procedural)
+        "glob": ["*.jpg", "*.png", "*.jpeg", "*.ppm"],
         "train_batch_size": 32,
         "val_batch_size": 32,
+        "batch_size": 32,
+        "num_workers": 0,
         "steps_per_epoch": 500,
         "val_steps": 4,
         "seed": 0,
@@ -238,14 +282,15 @@ class OnDeviceHomographyDataset(BaseDataset):
         "right_only": False,  # view0 gets a milder warp when True
     }
 
-    def __init__(self, conf: dict | None = None):
-        super().__init__(conf)
-        if self.conf["data_dir"]:
-            raise NotImplementedError("a pool of real images (data_dir) is not ported")
-
-    def build_pool(self, split: str = "train") -> dict:
-        """The procedural source pool as host arrays: uint8 images
-        (n, h, w, 1), corner points (n, K, 2) and their validity (n, K)."""
+    def build_pool(self, split: str = "train", device: str | torch.device = "cpu") -> dict:
+        """The source pool as host arrays: uint8 images (n, h, w, 1), corner
+        points (n, K, 2) and their validity (n, K). Procedural, or with
+        ``data_dir`` the images of that folder (``glob`` under it, recursive;
+        relative to DATA_PATH): one permutation seeded by ``seed`` takes the
+        train pool from its head and the val pool from its tail; each image
+        is the mean of its channels, resized by INTER_AREA, without corner
+        ground truth (validity False). ``device`` is where a subclass
+        computes the pool; the images are made on the host."""
         conf = self.conf
         n = int(conf["val_pool_size"] if split == "val" else conf["pool_size"])
         w, h = (int(x) for x in conf["source_size"])
@@ -253,11 +298,42 @@ class OnDeviceHomographyDataset(BaseDataset):
         images = np.zeros((n, h, w, 1), np.uint8)
         points = np.zeros((n, k, 2), np.float32)
         valid = np.zeros((n, k), bool)
-        salt = 104729 if split == "val" else 0
-        for i in range(n):
-            rng = np.random.default_rng((int(conf["seed"]) + salt, i))
-            img, points[i], valid[i] = generate_structured_scene(rng, (w, h), k)
-            images[i] = np.clip(img * 255, 0, 255).astype(np.uint8)
+        if conf["data_dir"]:
+            from ..utils.image import read_image, resize
+
+            root = Path(conf["data_dir"])
+            if not root.is_absolute():
+                root = settings.DATA_PATH / root
+            paths = sorted(p for pat in conf["glob"] for p in root.glob("**/" + pat))
+            if not paths:
+                raise FileNotFoundError(f"no pool images under {root}")
+            # one permutation, so that the val tail is disjoint from the train head
+            sel = np.random.default_rng(int(conf["seed"])).permutation(len(paths))
+            sel = sel[-n:] if split == "val" else sel[:n]
+            if len(paths) < n + (int(conf["val_pool_size"]) if split != "val" else 0):
+                logger.warning("pool wants %d+val images but only %d available; train/val "
+                               "pools will overlap", n, len(paths))
+            for i, pi in enumerate(sel):
+                img = read_image(paths[pi % len(paths)]).astype(np.float32) / 255.0
+                if img.ndim == 3:
+                    img = img.mean(-1)
+                if img.shape[0] < h or img.shape[1] < w:
+                    raise NotImplementedError(
+                        f"{paths[pi % len(paths)]}: {img.shape[1]}x{img.shape[0]} is smaller "
+                        f"than source_size {w}x{h}; INTER_AREA upscaling is not ported")
+                img = resize(img, (w, h), "area")
+                images[i, ..., 0] = np.clip(img * 255, 0, 255).astype(np.uint8)
+        else:
+            salt = 104729 if split == "val" else 0
+            jobs = [(int(conf["seed"]) + salt, i, w, h, k) for i in range(n)]
+            if n >= POOL_PROCESS_MIN:  # each scene has its own generator: any order gives one pool
+                with ProcessPoolExecutor(min(os.cpu_count() or 1, 8),
+                                         mp_context=mp.get_context("fork")) as ex:
+                    scenes = list(ex.map(_pool_scene, jobs, chunksize=8))
+            else:
+                scenes = [_pool_scene(job) for job in jobs]
+            for i, (img, pts, val) in enumerate(scenes):
+                images[i], points[i], valid[i] = img, pts, val
         return {"images": images, "points": points, "point_valid": valid}
 
     def batch_size(self, split: str) -> int:
@@ -320,6 +396,187 @@ class OnDeviceHomographyDataset(BaseDataset):
         steps = int(self.conf["val_steps"] if split == "val" else self.conf["steps_per_epoch"])
         return SeedLoader(int(self.conf["seed"]), split, steps)
 
+    def get_overfit_loader(self, split: str, num_items: int = 1):
+        """One step an epoch, always the seed of step 0."""
+        return SeedLoader(int(self.conf["seed"]), split, 1, frozen=True)
+
+
+class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
+    """The cached-feature engine: the pool holds the features that
+    ``features_from`` (an extractor, its weights from ``experiment``)
+    extracts once from the source images; each step warps the keypoint
+    positions by the sampled homographies, jitters them by ``kp_noise``
+    pixels, and gives each view the source's descriptors with Gaussian
+    noise (``desc_noise``), renormalised, and a random share
+    (``desc_dropout``) of its keypoints dropped. The views carry these
+    features under ``cache``, so a pipeline with ``allow_no_extract`` runs
+    only its matcher. ``on_host`` extraction (the SIFT family) is not ported."""
+
+    default_conf: ClassVar[dict] = {
+        "name": "homographies_ondevice_cached",
+        "features_from": {
+            "name": "extractors.superpoint",  # unknown keys are filtered per extractor
+            "experiment": None,  # a run, a .ckpt or a weights blob holding the extractor
+            "max_num_keypoints": 512,
+            "detection_threshold": 0.0005,
+            "nms_radius": 4,
+            "batch": 16,  # images a forward
+            "on_host": False,  # extract on the host (not ported)
+        },
+        "desc_noise": 0.05,
+        "desc_dropout": 0.05,
+        "kp_noise": 0.0,  # px std of each view's keypoint jitter
+        "pool_cache": True,  # keep extracted pools as .npz under DATA_PATH
+    }
+
+    def __init__(self, conf: dict | None = None):
+        super().__init__(conf)
+        self._pools: dict[str, dict] = {}
+
+    def pool_cache_path(self, split: str) -> Path | None:
+        """``DATA_PATH/engine_pool_cache/<class>_<hash>.npz``: the hash is the
+        JAX package's, over the same keys of the conf serialised alike, so
+        one conf names one file in both packages."""
+        if not self.conf.get("pool_cache", True):
+            return None
+        keys = ["pool_size", "val_pool_size", "source_size", "seed", "data_dir", "glob",
+                "max_gt_points", "features_from"]
+        spec = {k: self.conf.get(k) for k in keys}
+        spec["split"] = split
+        digest = hashlib.sha1(json.dumps(spec, sort_keys=True, default=str).encode())
+        folder = settings.DATA_PATH / "engine_pool_cache"
+        folder.mkdir(parents=True, exist_ok=True)
+        return folder / f"{type(self).__name__}_{digest.hexdigest()[:16]}.npz"
+
+    def build_pool(self, split: str = "train", device: str | torch.device = "cuda") -> dict:
+        """The feature pool as host arrays: keypoints (n, K, 2), float16
+        descriptors (n, K, D), scores and validity (n, K), and the
+        ``source_size`` they were extracted at. Read from the pool cache
+        where it holds this conf's file, else extracted on ``device`` and
+        written there (atomically: a ``.tmp.npz`` renamed)."""
+        if split in self._pools:
+            return self._pools[split]
+        path = self.pool_cache_path(split)
+        if path is not None and path.exists():
+            with np.load(path) as blob:
+                pool = {k: blob[k] for k in blob.files}
+        else:
+            pool = self.extract_pool(split, device)
+            if path is not None:
+                tmp = path.with_suffix(".tmp.npz")
+                np.savez(tmp, **pool)
+                tmp.replace(path)
+        self._pools[split] = pool
+        return pool
+
+    def extractor(self, device: str | torch.device) -> torch.nn.Module:
+        """The extractor of ``features_from`` on ``device``, in inference
+        mode: its conf is the keys of ``features_from`` that the extractor's
+        ``default_conf`` names; its weights come from ``experiment`` (a run's
+        last checkpoint, a ``.ckpt`` or a blob; a pipeline's ``['extractor']``
+        scope is stripped), every parameter restored."""
+        from ..models import build_model, get_model
+        from ..utils.experiments import load_experiment, require_restored
+        from ..utils.experiments import restore_from_flat_dict
+
+        fconf = self.conf["features_from"]
+        name = fconf.get("name", "extractors.superpoint")
+        known = get_model(name).default_conf
+        ext_conf = {k: v for k, v in fconf.items() if k in known and k != "name"}
+        with torch.random.fork_rng(devices=[]):  # the JAX engine initialises from key 0
+            torch.manual_seed(0)
+            model = build_model(name, ext_conf, device=device)
+        if fconf.get("experiment"):
+            blob, _ = load_experiment(str(fconf["experiment"]), best=False)
+            flat = {k.replace("['extractor']", ""): v for k, v in blob["state"]["params"].items()}
+            require_restored(restore_from_flat_dict(model, flat), [fconf["experiment"]])
+        return model.eval()
+
+    def extract_pool(self, split: str, device: str | torch.device = "cuda") -> dict:
+        """The features of the source pool (``OnDeviceHomographyDataset``'s
+        images), ``features_from.batch`` images a forward on ``device``."""
+        if self.conf["features_from"].get("on_host", False):  # where JAX branches
+            raise NotImplementedError("features_from.on_host (host extraction) is not ported")
+        images = OnDeviceHomographyDataset.build_pool(self, split)["images"]
+        n, h, w = images.shape[:3]
+        model = self.extractor(device)
+        size = torch.tensor([[float(w), float(h)]], device=device)
+        keys = ("keypoints", "descriptors", "keypoint_scores", "keypoint_valid")
+        out = {k: [] for k in keys}
+        bs = int(self.conf["features_from"]["batch"])
+        with torch.inference_mode():
+            for i in range(0, n, bs):
+                chunk = torch.from_numpy(images[i:i + bs]).to(device).float() / 255.0
+                pred = model({"image": chunk, "image_size": size.expand(chunk.shape[0], 2)})
+                for k in keys:
+                    out[k].append(pred[k].cpu().numpy())
+        pool = {k: np.concatenate(v) for k, v in out.items()}
+        pool["descriptors"] = pool["descriptors"].astype(np.float16)
+        pool["source_size"] = np.asarray([w, h], np.float32)
+        return pool
+
+    def batch_draws(self, generator: torch.Generator, pool: dict, split: str = "train") -> dict:
+        """Every random number of one batch, in the JAX engine's order: pool
+        indices, the two homographies, the two descriptor noises, the two
+        dropout uniforms (a keypoint drops where its uniform is below
+        ``desc_dropout``) and the two keypoint jitters."""
+        bsz = self.batch_size(split)
+        m, k, d = pool["descriptors"].shape
+        dev = generator.device
+
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, device=dev)
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        return {"idx": torch.randint(0, m, (bsz,), generator=generator, device=dev),
+                "h0": homography_draws(generator, bsz), "h1": homography_draws(generator, bsz),
+                "n0": normal(bsz, k, d), "n1": normal(bsz, k, d),
+                "d0": uniform(bsz, k), "d1": uniform(bsz, k),
+                "j0": normal(bsz, k, 2), "j1": normal(bsz, k, 2)}
+
+    def make_batch_from_draws(self, pool: dict, draws: dict) -> dict:
+        """A batch of two views, each with its features under ``cache``, from
+        the pool (tensors on the device) and draws."""
+        conf = self.conf
+        s = int(conf["image_size"])
+        ws, hs = (int(float(x)) for x in conf["source_size"])
+        idx = draws["idx"]
+        bsz = idx.shape[0]
+        kp_src = pool["keypoints"][idx]
+        desc = pool["descriptors"][idx].float()
+        scores, kv = pool["keypoint_scores"][idx], pool["keypoint_valid"][idx]
+        hconf = conf["homography"]
+        mild = 0.3 if conf["right_only"] else 1.0
+        H0, _ = homography_from_draws(
+            draws["h0"], (ws, hs), (s, s), difficulty=float(hconf["difficulty"]) * mild,
+            translation=float(hconf["translation"]), max_angle=float(hconf["max_angle"]) * mild)
+        H1, _ = homography_from_draws(
+            draws["h1"], (ws, hs), (s, s), difficulty=float(hconf["difficulty"]),
+            translation=float(hconf["translation"]), max_angle=float(hconf["max_angle"]))
+        kp_noise = float(conf["kp_noise"])
+
+        def view(H, i):
+            kp = warp_points(kp_src, H)
+            if kp_noise > 0:
+                kp = kp + kp_noise * draws[f"j{i}"]
+            inside = ((kp[..., 0] >= 0.0) & (kp[..., 0] <= s - 1.0)
+                      & (kp[..., 1] >= 0.0) & (kp[..., 1] <= s - 1.0))
+            d = desc + float(conf["desc_noise"]) * draws[f"n{i}"]
+            d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-8)
+            drop = draws[f"d{i}"] < float(conf["desc_dropout"])
+            return {"cache": {"keypoints": kp, "descriptors": d, "keypoint_scores": scores,
+                              "keypoint_valid": kv & inside & ~drop},
+                    "image_size": torch.full((bsz, 2), float(s), device=kp.device)}
+
+        return {"view0": view(H0, 0), "view1": view(H1, 1),
+                "H_0to1": H1 @ torch.linalg.inv(H0)}
+
+    def make_batch(self, pool: dict, seed: int, split: str = "train") -> dict:
+        generator = torch.Generator(device=pool["keypoints"].device).manual_seed(int(seed))
+        return self.make_batch_from_draws(pool, self.batch_draws(generator, pool, split))
+
 
 def upload_pool(pool: dict, device: str | torch.device) -> dict:
     """The host pool as tensors on ``device``, uploaded once."""
@@ -328,10 +585,11 @@ def upload_pool(pool: dict, device: str | torch.device) -> dict:
 
 class SeedLoader:
     """Yields one integer seed per step; ``make_batch`` turns it into a batch
-    (the JAX engine's ``_SeedLoader``)."""
+    (the JAX engine's ``_SeedLoader``). A ``frozen`` loader (the overfit
+    loader) yields the seed of step 0 at every step of every epoch."""
 
-    def __init__(self, base_seed: int, split: str, steps: int):
-        self.base, self.split, self.steps = base_seed, split, steps
+    def __init__(self, base_seed: int, split: str, steps: int, frozen: bool = False):
+        self.base, self.split, self.steps, self.frozen = base_seed, split, steps, frozen
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -343,7 +601,7 @@ class SeedLoader:
     def __iter__(self):
         salt = 1 << 40 if self.split == "val" else 0  # disjoint seed streams
         for i in range(self.steps):
-            yield self.base + salt + self.epoch * self.steps + i
+            yield self.base + salt + (0 if self.frozen else self.epoch * self.steps + i)
 
 
 __main_dataset__ = OnDeviceHomographyDataset

@@ -1,6 +1,12 @@
-"""Training (gluefactory_tpu/train.py) on one GPU with the on-device data
-engine: each step makes its batch on the card from one seed, runs the
-pipeline and its loss, backpropagates and updates the trainable parameters.
+"""Training (gluefactory_tpu/train.py) on one GPU: each step takes its
+batch, runs the pipeline and its loss, backpropagates and updates the
+trainable parameters. A dataset with ``device_engine`` (the on-device
+engines) makes each batch on the card from one seed; any other dataset's
+batches come from its host loader (``base_dataset.DataLoader``: read ahead
+in worker processes), their strings dropped, copied to the card from pinned memory
+without blocking (inside the step); each step's scalars then hold
+``data_ms``, the host's wait for the loader's next batch, beside the
+step's ``ms``.
 
 As in the JAX trainer:
   - gradients are computed for every parameter, frozen ones included
@@ -18,11 +24,17 @@ As in the JAX trainer:
     even the optimizer's step count, which the learning-rate schedule reads
     (0 for the first update);
   - ``training`` runs the loop: ``load_experiment`` (a run, a ``.ckpt`` or a
-    committed ``.msgpack`` blob) or ``--restore`` (parameters, Adam state,
-    epoch and iteration of the run's last checkpoint); scalars averaged every
-    ``log_every_iter`` steps into ``metrics.jsonl``; every
-    ``eval_every_iter`` steps an evaluation on the engine's val pool
-    (``val/*``, ``match_AP``) and a checkpoint; at each epoch end the
+    committed ``.msgpack`` blob, or several separated by commas, restored a
+    whole component at a time: ``utils/experiments.restore_components``,
+    which drops a full pipeline's ``['extractor']`` half for a matcher-only
+    model and refuses a component held in part) or ``--restore``
+    (parameters, Adam state, epoch and iteration of the run's last
+    checkpoint); with
+    ``overfit`` each epoch is the dataset's overfit loader (the seed of step
+    0, or the first item); scalars averaged every ``log_every_iter`` steps
+    into ``metrics.jsonl``; every ``eval_every_iter`` steps an evaluation on
+    the val split (``val/*``, ``match_AP``) and a checkpoint; at each epoch
+    end the
     benchmarks of ``run_benchmarks`` (every ``benchmark_every_epoch``
     epochs), on a model overlay each that shares the live parameters, whose
     summaries (``bench/<name>/<key>``) can pick ``checkpoint_best``
@@ -30,8 +42,7 @@ As in the JAX trainer:
     SIGINT stops after the step, with an evaluation and an ``_interrupted``
     checkpoint. Checkpoints are the JAX package's (utils/experiments.py).
 
-Not ported: several GPUs, datasets other than the on-device engine,
-``overfit`` (refused), the code snapshot and the profiler. The keys that
+Not ported: several GPUs, the code snapshot and the profiler. The keys that
 the JAX trainer ignores (``save_every_iter``, ``log_grad_every_iter``,
 ``opt_regexp``, ``mixed_precision``, ``log_dir``, ``dataset_callback_*``,
 ``lr_schedule.on_epoch``) are ignored here too.
@@ -60,7 +71,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .core.config import dotlist_to_dict, merge
+from .core.config import dotlist_to_dict, load_conf, merge
 from .datasets import get_dataset
 from .datasets.homographies_ondevice import upload_pool
 from .eval import get_benchmark, run_benchmark
@@ -71,6 +82,7 @@ from .settings import TRAINING_PATH
 from .utils.device import resolve_device
 from .utils.experiments import (
     load_experiment,
+    restore_components,
     restore_from_flat_dict,
     save_conf,
     save_experiment,
@@ -95,13 +107,13 @@ default_train_conf = {
     "log_every_iter": 200,
     "log_grad_every_iter": None,  # ignored, as in JAX
     "keep_last_checkpoints": 5,
-    "load_experiment": None,  # a run, a .ckpt or a weights/*.msgpack blob
+    "load_experiment": None,  # a run, a .ckpt or a weights/*.msgpack blob (or several, a,b)
     "clip_grad": 1.0,
     "best_key": "loss/total",
     "best_mode": "min",  # 'max' for benchmark metrics such as bench/<name>/<key>_mAA
     "dataset_callback_fn": None,  # ignored, as in JAX
     "dataset_callback_on_val": False,
-    "overfit": False,  # not ported: refused
+    "overfit": False,  # every epoch the dataset's overfit loader
     "num_steps_per_epoch": None,  # cap on the steps of an epoch
     "mixed_precision": None,  # ignored, as in JAX (the models' dtype keys cast)
     "log_dir": None,  # ignored, as in JAX
@@ -374,12 +386,27 @@ def _pr_counts(pred: dict, data: dict) -> dict | None:
             "num_pos": (gt >= 0).sum()}
 
 
-def make_eval_forward(model: torch.nn.Module, dataset) -> Callable:
-    """The validation forward of one batch of the engine: (pool, seed) ->
-    (losses, metrics, PR counts)."""
+def to_device(batch, device: torch.device):
+    """A host batch on ``device``: numpy arrays as tensors (from pinned memory,
+    without blocking, onto a card), nested dicts alike; strings and other
+    values dropped."""
+    if isinstance(batch, dict):
+        out = {k: to_device(v, device) for k, v in batch.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    if isinstance(batch, (np.ndarray, np.generic)) and batch.dtype.kind in "biuf":
+        tensor = torch.from_numpy(np.ascontiguousarray(batch))
+        if device.type == "cuda":
+            return tensor.pin_memory().to(device, non_blocking=True)
+        return tensor.to(device)
+    return None
 
-    def forward(pool: dict, seed: int):
-        data = dataset.make_batch(pool, seed, "val")
+
+def make_eval_forward(model: torch.nn.Module, batch_of: Callable) -> Callable:
+    """The validation forward of one loader item: (pool, item) -> (losses,
+    metrics, PR counts); ``batch_of(pool, item)`` makes the batch."""
+
+    def forward(pool: dict, item):
+        data = batch_of(pool, item)
         pred = model(data)
         losses, metrics = model.loss(pred, data)
         return losses, metrics, _pr_counts(pred, data)
@@ -389,9 +416,10 @@ def make_eval_forward(model: torch.nn.Module, dataset) -> Callable:
 
 def do_evaluation(model: torch.nn.Module, loader, eval_forward: Callable, pool: dict,
                   writer=None, step: int = 0) -> dict:
-    """Mean losses and metrics over the val loader's seeds (no gradients, the
-    model in eval mode), and ``match_AP``, the average precision of the
-    matches over confidence thresholds from the binned counts."""
+    """Mean losses and metrics over the val loader's items (seeds of the
+    engine's ``pool``, or host batches; no gradients, the model in eval
+    mode), and ``match_AP``, the average precision of the matches over
+    confidence thresholds from the binned counts."""
     results: dict[str, AverageMetric] = defaultdict(AverageMetric)
     pr = None
     was_training = model.training
@@ -485,25 +513,27 @@ def bench_overlay(model: torch.nn.Module, model_conf: dict, name: str, overlay: 
 
 
 class Trainer:
-    """A model, its optimizer, the on-device engine's pool and the benchmark
-    overlays, built from a training conf (``data``, ``model``, ``train``), on
-    ``device`` (CUDA unless asked). ``weights`` is a committed blob loaded
-    strictly into the model in place of ``train.load_experiment``; ``pool``
-    an uploaded pool to share (else the engine's is built)."""
+    """A model, its optimizer, the data (the on-device engine's pool, or the
+    host dataset) and the benchmark overlays, built from a training conf
+    (``data``, ``model``, ``train``), on ``device`` (CUDA unless asked).
+    ``weights`` is a committed blob loaded strictly into the model in place
+    of ``train.load_experiment``; ``pool`` an uploaded pool to share (else
+    the engine's is built on ``device``)."""
 
     def __init__(self, conf: dict, device: str | torch.device = "cuda", weights=None,
                  pool: dict | None = None):
         self.device = resolve_device(device)
         self.conf = merge(default_conf, conf)
         tconf = self.conf["train"]
-        if tconf["overfit"]:
-            raise NotImplementedError("train.overfit is not ported")
         self.benchmarks = list(tconf["run_benchmarks"])
         for bench in self.benchmarks:
             get_benchmark(bench["name"])  # refuses what is not ported, before any step
         self.dataset = get_dataset(self.conf["data"]["name"])(self.conf["data"])
-        self.pool = pool if pool is not None else upload_pool(
-            self.dataset.build_pool("train"), self.device)
+        self.engine = self.dataset.device_engine
+        self.pool = None
+        if self.engine:
+            self.pool = pool if pool is not None else upload_pool(
+                self.dataset.build_pool("train", self.device), self.device)
         with torch.random.fork_rng(devices=[]):  # initialisation leaves no trace
             torch.manual_seed(int(tconf["seed"]))
             self.model = build_model(self.conf["model"]["name"], self.conf["model"],
@@ -511,8 +541,7 @@ class Trainer:
         if weights is not None:
             load_weights(self.model, weights)
         elif tconf["load_experiment"]:
-            blob, _ = load_experiment(tconf["load_experiment"], best=False)
-            restore_from_flat_dict(self.model, blob["state"]["params"])
+            restore_components(self.model, tconf["load_experiment"])
             logger.info("Loaded params from experiment %s", tconf["load_experiment"])
         self.optimizer = make_optimizer(tconf, self.model, self.conf["model"])
         # built once, before any step: an overlay that does not fit fails here
@@ -520,9 +549,22 @@ class Trainer:
                                                       b.get("model"), self.device)
                              for b in self.benchmarks}
 
-    def step(self, seed: int) -> dict:
-        """One training step on the batch of ``seed``."""
-        return train_step(self.model, self.optimizer, self.dataset.make_batch(self.pool, seed))
+    def batch(self, pool: dict | None, item, split: str = "train") -> dict:
+        """The device batch of a loader item: the engine's batch of seed
+        ``item`` from ``pool``, or the host batch ``item`` on the device."""
+        if self.engine:
+            return self.dataset.make_batch(pool, item, split)
+        return to_device(item, self.device)
+
+    def loader(self, split: str):
+        """The loader of ``split``: the overfit loader with ``train.overfit``."""
+        if self.conf["train"]["overfit"]:
+            return self.dataset.get_overfit_loader(split)
+        return self.dataset.get_data_loader(split)
+
+    def step(self, item) -> dict:
+        """One training step on the batch of loader item ``item``."""
+        return train_step(self.model, self.optimizer, self.batch(self.pool, item))
 
     def state(self) -> dict:
         return {"params": self.model, "opt_state": self.optimizer}
@@ -531,11 +573,12 @@ class Trainer:
 def training(conf: dict, output_dir: str | Path, args=None, *, steps: int | None = None,
              device: str | torch.device = "cuda", weights=None, pool: dict | None = None,
              log: Callable[[dict], None] | None = None):
-    """Train for ``train.epochs`` epochs of the engine's seeds into
+    """Train for ``train.epochs`` epochs of the loader's items into
     ``output_dir`` (``args.restore``: resume from its last checkpoint), or
     stop after ``steps`` steps. ``weights`` and ``pool`` go to ``Trainer``;
     ``log`` receives each step's scalars. Returns (trainer, the scalars of
-    every step, with its host ``ms``)."""
+    every step, with its host ``ms``, and on a host dataset the ``data_ms``
+    that the step waited for its batch)."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     trainer = Trainer(conf, device, weights, pool)
@@ -559,15 +602,16 @@ def training(conf: dict, output_dir: str | Path, args=None, *, steps: int | None
                        "controller watches the per-iteration val metrics and will be a no-op "
                        "for bench/* keys; use a factor/exp schedule instead.",
                        tconf["best_key"])
-    train_loader = dataset.get_data_loader("train")
+    train_loader = trainer.loader("train")
     val_loader = dataset.get_data_loader("val")
-    eval_forward = make_eval_forward(model, dataset)
-    val_pool = {}  # uploaded at the first evaluation
+    eval_forward = make_eval_forward(model, lambda pool, item: trainer.batch(pool, item, "val"))
+    val_pool = {}  # the engine's, uploaded at the first evaluation
     writer = JSONLWriter(output_dir)
 
     def evaluate() -> dict:
-        if not val_pool:
-            val_pool.update(upload_pool(dataset.build_pool("val"), trainer.device))
+        if trainer.engine and not val_pool:
+            val_pool.update(upload_pool(dataset.build_pool("val", trainer.device),
+                                        trainer.device))
         return do_evaluation(model, val_loader, eval_forward, val_pool, writer, iteration)
 
     stop = {"flag": False}
@@ -587,12 +631,19 @@ def training(conf: dict, output_dir: str | Path, args=None, *, steps: int | None
         for epoch in range(epoch0, int(tconf["epochs"])):
             train_loader.set_epoch(epoch)
             steps_in_epoch = 0
-            for seed in train_loader:
+            items = iter(train_loader)
+            while True:
                 if steps is not None and len(history) >= steps:
                     return trainer, history
                 t = time.perf_counter()
-                scalars = trainer.step(seed)
-                history.append({**scalars, "ms": (time.perf_counter() - t) * 1e3})
+                item = next(items, None)
+                if item is None:
+                    break
+                data_ms = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
+                scalars = trainer.step(item)
+                history.append({**scalars, "ms": (time.perf_counter() - t) * 1e3,
+                                **({} if trainer.engine else {"data_ms": data_ms})})
                 iteration += 1
                 samples_since += dataset.batch_size("train")
                 if log is not None:
@@ -659,20 +710,6 @@ def training(conf: dict, output_dir: str | Path, args=None, *, steps: int | None
         writer.close()
     logger.info("Finished training at epoch %d iter %d", int(tconf["epochs"]), iteration)
     return trainer, history
-
-
-def load_conf(path: str | Path) -> dict:
-    """A training conf file: JSON, or YAML where the ``yaml`` package is
-    installed."""
-    path = Path(path)
-    if path.suffix == ".json":
-        return json.loads(path.read_text())
-    try:
-        import yaml
-    except ImportError as e:
-        raise ImportError(f"{path} is YAML and this machine has no yaml package: "
-                          "give the conf as JSON") from e
-    return yaml.safe_load(path.read_text())
 
 
 def main(argv: list[str] | None = None) -> None:

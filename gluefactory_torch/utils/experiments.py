@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from ..core.config import lookup
+from ..core.config import load_conf, lookup
 from ..models.matchers.lightglue import head_counts
 from ..settings import ROOT_PATH, TRAINING_PATH
 from .weights import (
@@ -65,20 +65,24 @@ def _adapt_nesting(flat: dict, target_keys: set) -> dict:
     return flat
 
 
-def restore_from_flat_dict(target, flat: dict) -> None:
+def restore_from_flat_dict(target, flat: dict, warn: bool = True) -> list[str]:
     """Load a flat checkpoint dict into ``target`` in place: a model (the
     inverse of ``state_to_flat_dict``; a parameter the checkpoint lacks keeps
-    its value, with a warning, and keys the model lacks are ignored, as in
-    JAX), or a ``train.Optimizer`` (its ``load_flat_state``)."""
+    its value, with a warning where ``warn``, and keys the model lacks are
+    ignored, as in JAX; a shape that differs raises), or a
+    ``train.Optimizer`` (its
+    ``load_flat_state``). Returns the flax keys of the model that the
+    checkpoint lacks, for callers that refuse to keep initialised values
+    (``require_restored``)."""
     if not isinstance(target, torch.nn.Module):
         target.load_flat_state(flat)
-        return
+        return []
     own = target.state_dict()
     keys = {flax_key(name): name for name in own}
     flat = _adapt_nesting(flat, set(keys))
-    for key, name in keys.items():
-        if key not in flat:
-            logger.warning("Checkpoint missing %s; keeping initialized value", key)
+    missing = [key for key in keys if key not in flat]
+    for key in missing if warn else ():
+        logger.warning("Checkpoint missing %s; keeping initialized value", key)
     state = params_from_flat({k: v for k, v in flat.items() if k in keys},
                              head_counts(target))
     with torch.no_grad():
@@ -87,6 +91,59 @@ def restore_from_flat_dict(target, flat: dict) -> None:
                 raise ValueError(f"{name}: checkpoint shape {tuple(value.shape)}, model "
                                  f"shape {tuple(own[name].shape)}")
             own[name].copy_(value.to(own[name].dtype))
+    return missing
+
+
+def checkpoint_sources(checkpoint) -> list[str]:
+    """The sources of a ``checkpoint`` or ``load_experiment`` value: one
+    string (several separated by commas) or a list of them."""
+    if isinstance(checkpoint, (list, tuple)):
+        return [str(c) for c in checkpoint]
+    return [c for c in str(checkpoint).split(",") if c]
+
+
+def _scope(key: str) -> str:
+    """The component of a flax key: 'matcher' for ``['params']['matcher'][...]``."""
+    parts = key.split("]")
+    return parts[1].strip("[']") if len(parts) > 2 else ""
+
+
+def restore_components(model: torch.nn.Module, sources) -> None:
+    """Restore ``model`` from ``sources`` in order (each read by
+    ``load_experiment``, a later one overriding the keys it holds), whole
+    components at a time: each component of the model (``extractor``,
+    ``matcher``, ...) that a source holds is restored from it entirely; a
+    source that holds a component in part (a key missing, or a key the
+    model's component lacks, such as a layer past ``n_layers``) raises, as
+    does a shape that differs; keys of components the model lacks (a full
+    pipeline's ``['extractor']`` half for a matcher-only model) are dropped.
+    A component that no source holds keeps its initialisation, logged by
+    name."""
+    own = {flax_key(name) for name in model.state_dict()}
+    have = {_scope(k) for k in own}
+    missing = set(own)
+    for source in checkpoint_sources(sources):
+        flat = _adapt_nesting(load_experiment(source, best=False)[0]["state"]["params"], own)
+        held = {_scope(k) for k in flat} & have
+        part = sorted(k for k in own if _scope(k) in held and k not in flat)
+        extra = sorted(k for k in flat if k not in own and _scope(k) in held)
+        if part or extra:
+            raise KeyError(f"{source} holds {sorted(held)} in part: missing {part[:3]} "
+                           f"({len(part)}), not in the model {extra[:3]} ({len(extra)})")
+        restore_from_flat_dict(model, {k: v for k, v in flat.items() if k in own}, warn=False)
+        missing -= set(flat)
+    for scope in sorted({_scope(k) for k in missing}):
+        logger.warning("no source holds the %s: it keeps its initialisation", scope)
+
+
+def require_restored(missing: list[str], sources) -> None:
+    """Raise where a model kept initialised parameters after its restore:
+    ``missing`` are the flax keys that none of ``sources`` held."""
+    if missing:
+        scopes = sorted({_scope(key) for key in missing})
+        raise KeyError(f"{len(missing)} parameters of the model (under {scopes}, e.g. "
+                       f"{missing[0]}) are in none of {list(sources)}: name a checkpoint or "
+                       "weights blob that holds them")
 
 
 def list_checkpoints(dir_: Path) -> list[Path]:
@@ -168,18 +225,6 @@ def save_experiment(output_dir: Path, state: dict, conf: dict, epoch: int, itera
     return best_eval
 
 
-def _read_conf(path: Path) -> dict:
-    """A run's ``config.yaml``: JSON as the port writes it, else YAML (as the
-    JAX package writes it, which needs the ``yaml`` package)."""
-    text = path.read_text()
-    try:
-        return json.loads(text)
-    except json.JSONDecodeError:
-        import yaml
-
-        return yaml.safe_load(text) or {}
-
-
 def load_experiment(exp_or_path: str | Path, best: bool = False) -> tuple[dict, dict]:
     """(checkpoint blob, conf) by experiment name (under TRAINING_PATH, or a
     folder's absolute path: its best or last checkpoint), ``.ckpt`` path, or
@@ -198,4 +243,4 @@ def load_experiment(exp_or_path: str | Path, best: bool = False) -> tuple[dict, 
                 else get_last_checkpoint(str(exp_or_path)))
     blob = decode_msgpack(path.read_bytes())
     conf_path = path.parent / "config.yaml"
-    return blob, (_read_conf(conf_path) if conf_path.exists() else {})
+    return blob, (load_conf(conf_path) if conf_path.exists() else {})

@@ -11,7 +11,12 @@ call it replaces (named in its docstring) on float32 or uint8 images:
 - ``gaussian_blur``: ``GaussianBlur`` with the sigma OpenCV derives from the
   kernel size and BORDER_REFLECT_101;
 - ``warp_perspective``: ``warpPerspective`` with INTER_LINEAR and a
-  constant-0 border on uint8 (within one level of OpenCV's rounding).
+  constant-0 border, on uint8 (within one level of OpenCV's rounding),
+  float64 (coordinates on OpenCV's 1/32 table) or float32 (OpenCV 5 samples
+  float32 images at unquantised coordinates);
+- ``rgb_to_hsv``/``hsv_to_rgb``: ``cvtColor`` RGB<->HSV on uint8 (H in
+  0..179), bit for bit: OpenCV's division tables one way, its float32
+  sectors with a fused multiply-add and truncation the other.
 
 ``ImagePreprocessor`` resizes and pads an image onto a static canvas and
 returns the transform that maps original pixels onto it."""
@@ -173,11 +178,12 @@ def _apply(kind: str, x: np.ndarray, axis: int, dst: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def _separable(image: np.ndarray, kind: str, size: tuple[int, int]) -> np.ndarray:
+def _separable(image: np.ndarray, kind: str, size: tuple[int, int],
+               dtype=np.float32) -> np.ndarray:
     """The ``kind`` filter along rows and columns of each channel, in float64,
-    float32 out; ``size`` is (w, h) out."""
+    ``dtype`` out; ``size`` is (w, h) out."""
     x = _apply(kind, np.asarray(image, np.float64), 0, size[1])
-    return _apply(kind, x, 1, size[0]).astype(np.float32)
+    return _apply(kind, x, 1, size[0]).astype(dtype)
 
 
 def resize(image: np.ndarray, size: tuple[int, int], interpolation: str) -> np.ndarray:
@@ -188,10 +194,11 @@ def resize(image: np.ndarray, size: tuple[int, int], interpolation: str) -> np.n
 
 
 def _gaussian_kernel(ksize: int) -> np.ndarray:
-    """``cv2.getGaussianKernel(ksize, 0)``: the fixed small kernels up to 7
+    """``cv2.getGaussianKernel(ksize, 0)``: the fixed small kernels up to 9
     taps, else sigma = 0.3 * ((ksize - 1) / 2 - 1) + 0.8."""
     small = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
-             7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125]}
+             7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
+             9: [v / 256 for v in (4, 13, 30, 51, 60, 51, 30, 13, 4)]}
     if ksize in small:
         return np.array(small[ksize])
     sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
@@ -214,14 +221,20 @@ def _reflect101_filter(n: int, kernel: np.ndarray) -> np.ndarray:
 
 
 def gaussian_blur(image: np.ndarray, ksize: int) -> np.ndarray:
-    """``cv2.GaussianBlur(image, (ksize, ksize), 0)`` of a float image."""
-    return _separable(image, f"gaussian{ksize}", (image.shape[1], image.shape[0]))
+    """``cv2.GaussianBlur(image, (ksize, ksize), 0)`` of a float image, in
+    its own type (float64 stays float64, anything else is float32)."""
+    dtype = np.float64 if image.dtype == np.float64 else np.float32
+    return _separable(image, f"gaussian{ksize}", (image.shape[1], image.shape[0]), dtype)
 
 
 def warp_perspective(image: np.ndarray, H: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """``cv2.warpPerspective(image, H, size, flags=INTER_LINEAR)`` of a uint8
-    image (H, W) or (H, W, C): out(x) = image(H^-1 x) for integer pixel
-    coordinates x, bilinear, 0 outside the source; ``size`` is (w, h)."""
+    """``cv2.warpPerspective(image, H, size, flags=INTER_LINEAR)`` of a uint8,
+    float32 or float64 image (H, W) or (H, W, C): out(x) = image(H^-1 x) for
+    integer pixel coordinates x, bilinear, 0 outside the source; ``size`` is
+    (w, h). A uint8 image is rounded back to uint8; a float64 one is sampled
+    where OpenCV samples it, at coordinates rounded to 1/32 of a pixel (its
+    fixed-point table), a float32 one at the exact coordinates (OpenCV 5's
+    float path)."""
     w, h = size
     src_h, src_w = image.shape[:2]
     M = np.linalg.inv(np.asarray(H, np.float64))
@@ -232,20 +245,81 @@ def warp_perspective(image: np.ndarray, H: np.ndarray, size: tuple[int, int]) ->
         Y = (M[1, 0] * xs + M[1, 1] * ys + M[1, 2]) / den
     inside = np.isfinite(X) & np.isfinite(Y) & (np.abs(X) < 1e6) & (np.abs(Y) < 1e6)
     X, Y = np.where(inside, X, -10.0), np.where(inside, Y, -10.0)
+    if image.dtype == np.float64:
+        X, Y = np.round(X * 32) / 32, np.round(Y * 32) / 32
     x0, y0 = np.floor(X), np.floor(Y)
     fx, fy = (X - x0)[..., None], (Y - y0)[..., None]
     # a zero border of 2 pixels: a tap clamped into it reads 0, as OpenCV's
     # constant border gives
     stride = src_w + 4
-    padded = np.zeros((src_h + 4, stride, image.size // (src_h * src_w)), np.uint8)
+    padded = np.zeros((src_h + 4, stride, image.size // (src_h * src_w)), image.dtype)
     padded[2:-2, 2:-2] = image.reshape(src_h, src_w, -1)
     flat = padded.reshape(-1, padded.shape[-1])
     idx = ((np.clip(y0, -2, src_h).astype(np.int64) + 2) * stride
            + np.clip(x0, -2, src_w).astype(np.int64) + 2)
     top = flat[idx] * (1 - fx) + flat[idx + 1] * fx
     bottom = flat[idx + stride] * (1 - fx) + flat[idx + stride + 1] * fx
-    out = np.clip(np.rint(top * (1 - fy) + bottom * fy), 0, 255).astype(np.uint8)
+    out = top * (1 - fy) + bottom * fy
+    if image.dtype == np.uint8:
+        out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    elif image.dtype != np.float64:
+        out = out.astype(np.float32)
     return out.reshape((h, w) + image.shape[2:])
+
+
+# --- colour ----------------------------------------------------------------------
+
+_HSV_SHIFT = 12
+_SDIV = np.zeros(256, np.int64)  # OpenCV's tables: round((255 << 12) / i), round((180 << 12) / 6i)
+_HDIV = np.zeros(256, np.int64)
+_SDIV[1:] = np.rint((255 << _HSV_SHIFT) / np.arange(1.0, 256.0))
+_HDIV[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1.0, 256.0)))
+# the (b, g, r) entries of (v, v(1-s), v(1-sf), v(1-s(1-f))) in each hue sector
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def rgb_to_hsv(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_RGB2HSV)`` of uint8 RGB: H in 0..179,
+    S and V in 0..255, in OpenCV's 12-bit fixed point."""
+    rgb = image.astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+HSV_VECTOR_PIXELS = 32  # pixels a pass of OpenCV's vector loop (8 float lanes x 4)
+
+
+def hsv_to_rgb(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_HSV2RGB)`` of uint8 HSV (H in 0..179):
+    float32 sectors, ``1 - s * x`` as one fused multiply-add. OpenCV converts
+    row by row; its vector loop truncates to uint8, its scalar loop over the
+    last ``w % HSV_VECTOR_PIXELS`` pixels of a row rounds."""
+    f32, one = np.float32, np.float32(1.0)
+    h = image[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = image[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = image[..., 2].astype(f32) * f32(1.0 / 255.0)
+    whole = np.trunc(h)
+    frac = h - whole
+    sector = whole.astype(np.int64) % 6
+
+    def fused(x):  # round(1 - s * x) once: exact in float64 for float32 inputs
+        return (1.0 - s.astype(np.float64) * x.astype(np.float64)).astype(f32)
+
+    tab = np.stack([v, v * (one - s), v * fused(frac), v * fused(one - frac)], -1)
+    pick = _SECTORS[sector]
+    rgb = np.stack([np.take_along_axis(tab, pick[..., k:k + 1], -1)[..., 0]
+                    for k in (2, 1, 0)], -1)
+    rgb = np.where((s == 0)[..., None], v[..., None], rgb) * f32(255.0)
+    w = image.shape[-2] if image.ndim > 2 else image.shape[0]
+    scalar = (np.arange(w) >= w // HSV_VECTOR_PIXELS * HSV_VECTOR_PIXELS)[:, None]
+    return np.clip(np.where(scalar, np.rint(rgb), np.trunc(rgb)), 0, 255).astype(np.uint8)
 
 
 # --- preprocessing ----------------------------------------------------------------

@@ -115,6 +115,34 @@ with tempfile.TemporaryDirectory() as tmp:
     assert blob["eval"]["bench/hpatches/mnum_keypoints"] == 40.0 and saved == trainer.conf
     records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     assert any("val/match_AP" in r for r in records)
+# the cached-feature engine (a pool cache written and read back), the host
+# homography dataset with the lg photometrics, and a blob loaded as a
+# benchmark loads a run
+from gluefactory_torch import settings
+from gluefactory_torch.datasets.homographies import HomographyDataset
+from gluefactory_torch.datasets.homographies_ondevice import (
+    OnDeviceCachedFeatureDataset,
+    upload_pool,
+)
+from gluefactory_torch.eval.io import load_model
+from gluefactory_torch.recipes import hpatches_flagship_conf
+
+with tempfile.TemporaryDirectory() as tmp:
+    settings.DATA_PATH = Path(tmp)
+    cconf = {{"pool_size": 2, "source_size": [96, 96], "image_size": 64, "train_batch_size": 2,
+             "features_from": {{"experiment": "weights/sp_tpu_stage0b.f16.msgpack",
+                               "max_num_keypoints": 32, "batch": 2}}}}
+    built = OnDeviceCachedFeatureDataset(cconf).build_pool("train", "cpu")
+    read = OnDeviceCachedFeatureDataset(cconf).build_pool("train", "cpu")
+    assert all(np.array_equal(built[k], read[k]) for k in built)
+    batch = OnDeviceCachedFeatureDataset(cconf).make_batch(upload_pool(read, "cpu"), 0)
+    assert batch["view0"]["cache"]["descriptors"].shape == (2, 32, 256)
+item = HomographyDataset({{"synthetic": True, "image_size": 64,
+                          "synthetic_source_size": [96, 80]}}).get_dataset("train").getitem(
+    0, np.random.default_rng(0))
+assert item["view1"]["image"].shape == (64, 64, 3) and item["H_0to1"].shape == (3, 3)
+flagship = hpatches_flagship_conf()
+assert load_model(flagship["model"], flagship["checkpoint"], "cpu").matcher is not None
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

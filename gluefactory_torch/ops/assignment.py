@@ -1,6 +1,7 @@
-"""LightGlue's match assignment: the sigmoid-matchability double softmax and
-mutual-argmax filtering (gluefactory_tpu/ops/assignment.py). Batched,
-static-shape and mask-aware."""
+"""Match assignment (gluefactory_tpu/ops/assignment.py): LightGlue's
+sigmoid-matchability double softmax, SuperGlue's Sinkhorn optimal transport
+with dustbins, and mutual-argmax filtering. Batched, static-shape and
+mask-aware; plain PyTorch on the device (JAX runs them as plain XLA)."""
 
 from __future__ import annotations
 
@@ -41,6 +42,44 @@ def sigmoid_log_double_softmax(sim: torch.Tensor, z0: torch.Tensor, z1: torch.Te
     if pair is not None:
         scores = scores.masked_fill(~pair, NEG_INF)
     return scores
+
+
+def log_sinkhorn_iterations(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                            iters: int) -> torch.Tensor:
+    """``iters`` Sinkhorn steps in log space on Z (B, N, M) towards the
+    marginals log_mu (B, N) and log_nu (B, M); returns the scaled Z."""
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(Z + u[:, :, None], dim=1)
+    return Z + u[:, :, None] + v[:, None, :]
+
+
+def log_optimal_transport(sim: torch.Tensor, bin_score: torch.Tensor, iters: int = 50,
+                          mask0: torch.Tensor | None = None,
+                          mask1: torch.Tensor | None = None) -> torch.Tensor:
+    """SuperGlue's entropic optimal transport with a dustbin row and column:
+    sim (B, N, M) -> log-assignment (B, N + 1, M + 1), scaled by N + M. Padded
+    slots get similarity NEG_INF and no marginal; each dustbin's marginal is
+    the valid count of the other side."""
+    b, n, m = sim.shape
+    if mask0 is None:
+        mask0 = sim.new_ones((b, n), dtype=torch.bool)
+    if mask1 is None:
+        mask1 = sim.new_ones((b, m), dtype=torch.bool)
+    sim = sim.masked_fill(~(mask0[:, :, None] & mask1[:, None, :]), NEG_INF)
+    bins = bin_score.to(sim.dtype)
+    Z = torch.cat([torch.cat([sim, bins.expand(b, n, 1)], 2),
+                   torch.cat([bins.expand(b, 1, m), bins.expand(b, 1, 1)], 2)], 1)
+    n_valid = mask0.sum(1).to(sim.dtype)
+    m_valid = mask1.sum(1).to(sim.dtype)
+    log_num = torch.log((n_valid + m_valid).clamp_min(1.0))
+    log_mu = torch.cat([torch.where(mask0, 0.0, NEG_INF) - log_num[:, None],
+                        (torch.log(m_valid.clamp_min(1e-30)) - log_num)[:, None]], 1)
+    log_nu = torch.cat([torch.where(mask1, 0.0, NEG_INF) - log_num[:, None],
+                        (torch.log(n_valid.clamp_min(1e-30)) - log_num)[:, None]], 1)
+    Z = log_sinkhorn_iterations(Z, log_mu, log_nu, iters)
+    return Z + log_num[:, None, None]
 
 
 def filter_matches(scores: torch.Tensor, threshold: float) -> dict:

@@ -534,3 +534,100 @@ def lg_ondevice_r3_conf() -> dict:
     """The on-device LightGlue recipe of round 3, continued from the run
     ``lg_tpu_stage1_r2``, whose export is ``LG_STAGE1_R2_WEIGHTS``."""
     return copy.deepcopy(_LG_ONDEVICE_R3)
+
+
+# --- SIFT, SuperGlue and the nearest-neighbour matcher -----------------------------
+
+SG_SIFT_WEIGHTS = WEIGHTS_PATH / "sg_sift_stage1.f16.msgpack"  # SuperGlue on RootSIFT
+LG_SIFT_WEIGHTS = WEIGHTS_PATH / "lg_sift_stage2.f16.msgpack"  # LightGlue on RootSIFT
+
+_HPATCHES_DATA = {"name": "hpatches", "test_batch_size": 1, "num_workers": 2,
+                  "preprocessing": {"resize": 480, "side": "long", "square_pad": True}}
+_HPATCHES_EVAL = {"estimator": "ransac", "ransac_th": -1.0, "num_hypotheses": 1024}
+_SUPERGLUE = {"name": "matchers.superglue", "input_dim": 128, "descriptor_dim": 256,
+              "n_layers": 9, "sinkhorn_iterations": 50, "filter_threshold": 0.2}
+
+_HPATCHES_SIFT_SG = {  # outputs/results/hpatches/sift_sg_stage1/conf.yaml
+    "data": _HPATCHES_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {"name": "extractors.sift", "max_num_keypoints": 2048,
+                            "contrast_threshold": 0.02},
+              "matcher": _SUPERGLUE,
+              "ground_truth": {"name": None},
+              "run_gt_in_forward": False},
+    "eval": _HPATCHES_EVAL,
+    "checkpoint": "weights/sg_sift_stage1.f16.msgpack",
+}
+_HPATCHES_SIFT_NN = {  # outputs/results/hpatches/sift_nn/conf.yaml
+    "data": _HPATCHES_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {"name": "extractors.sift", "max_num_keypoints": 2048},
+              "matcher": {"name": "matchers.nearest_neighbor_matcher", "ratio_thresh": 0.8}},
+    "eval": _HPATCHES_EVAL,
+    "checkpoint": None,
+}
+_HPATCHES_SP_NN = {  # outputs/results/hpatches/sp0b_nn_com/conf.yaml
+    "data": _HPATCHES_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {"name": "extractors.superpoint", "max_num_keypoints": 1024,
+                            "detection_threshold": 0.005, "refinement_radius": 2,
+                            "refinement_mode": "com"},
+              "matcher": {"name": "matchers.nearest_neighbor_matcher", "ratio_thresh": 0.95}},
+    "eval": _HPATCHES_EVAL,
+    "checkpoint": "weights/sp_tpu_stage0b.f16.msgpack",
+}
+
+
+def hpatches_sift_superglue_conf() -> dict:
+    """SIFT (2048 keypoints, contrast 0.02, RootSIFT) and 9-layer SuperGlue
+    from ``SG_SIFT_WEIGHTS`` on the HPatches benchmark, the conf of the
+    published famA/famB numbers (famB sets ``data.data_dir``)."""
+    return copy.deepcopy(_HPATCHES_SIFT_SG)
+
+
+def hpatches_sift_nn_conf() -> dict:
+    """SIFT (2048 keypoints, contrast 0.04) and the mutual nearest neighbour
+    with the ratio test at 0.8 on the HPatches benchmark: no weights."""
+    return copy.deepcopy(_HPATCHES_SIFT_NN)
+
+
+def hpatches_sp_nn_conf() -> dict:
+    """SuperPoint stage 0b (1024 keypoints, CoM readout) and the mutual
+    nearest neighbour with the ratio test at 0.95 on the HPatches benchmark,
+    from ``SP_STAGE0B_WEIGHTS``."""
+    return copy.deepcopy(_HPATCHES_SP_NN)
+
+
+_GATE_SIFT = {"name": "extractors.sift", "max_num_keypoints": 1024,
+              "contrast_threshold": 0.02}
+# the confs of the JAX package's quality gates (tests/test_trained_quality.py), each
+# with its blob: SIFT+SuperGlue (test_trained_sift_superglue_quality), SIFT+LightGlue
+# stage 2 (test_trained_sift_lightglue_stage2_quality) and the stage-0b SuperPoint
+# with the nearest neighbour (test_trained_superpoint_loc_finetune_quality)
+_GATES = {
+    "sift_superglue": ({"extractor": _GATE_SIFT, "matcher": _SUPERGLUE}, SG_SIFT_WEIGHTS),
+    "sift_lightglue": ({"extractor": _GATE_SIFT,
+                        "matcher": {"name": "matchers.lightglue", "input_dim": 128,
+                                    "n_layers": 6, "filter_threshold": 0.1,
+                                    "checkpointed": False, "save_layer_outputs": False}},
+                       LG_SIFT_WEIGHTS),
+    "superpoint_nn": ({"extractor": {"name": "extractors.superpoint", "max_num_keypoints": 512,
+                                     "detection_threshold": 0.005, "nms_radius": 4,
+                                     "refinement_radius": 2, "refinement_mode": "softargmax"},
+                       "matcher": {"name": "matchers.nearest_neighbor_matcher"}},
+                      SP_STAGE0B_WEIGHTS),
+}
+# their bounds on the medians over the gate's 6 pairs: matches and precisions above,
+# the corner error (px) below
+GATE_BOUNDS = {
+    "sift_superglue": {"matches": 60, "prec3": 0.6, "h_err": 1.5},
+    "sift_lightglue": {"matches": 60, "prec1": 0.55, "prec3": 0.7, "h_err": 1.0},
+    "superpoint_nn": {"matches": 80, "prec1": 0.12, "prec3": 0.4, "h_err": 3.0},
+}
+
+
+def gate_conf(name: str) -> tuple[dict, object]:
+    """(the two-view pipeline's conf, its blob) of the JAX gate ``name``, a
+    key of ``GATE_BOUNDS``."""
+    conf, blob = _GATES[name]
+    return {"name": "two_view_pipeline", **copy.deepcopy(conf)}, blob

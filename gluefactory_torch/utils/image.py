@@ -24,6 +24,7 @@ returns the transform that maps original pixels onto it."""
 from __future__ import annotations
 
 import functools
+import math
 from pathlib import Path
 
 import numpy as np
@@ -186,10 +187,63 @@ def _separable(image: np.ndarray, kind: str, size: tuple[int, int],
     return _apply(kind, x, 1, size[0]).astype(dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _area_table(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's INTER_AREA table (computeResizeAreaTab) as (sources, weights),
+    each (dst, taps): the source samples of each output sample in OpenCV's
+    order, weights in float32, padded with weight 0."""
+    scale = src / dst
+    rows = []
+    for d in range(dst):
+        f0 = d * scale
+        f1 = f0 + scale
+        cell = min(scale, src - f0)
+        s1, s2 = math.ceil(f0), math.floor(f1)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        row = [(s1 - 1, (s1 - f0) / cell)] if s1 - f0 > 1e-3 else []
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f1 - s2 > 1e-3:
+            row.append((s2, min(min(f1 - s2, 1.0), cell) / cell))
+        rows.append(row)
+    taps = max(len(row) for row in rows)
+    cols = np.zeros((dst, taps), np.int64)
+    vals = np.zeros((dst, taps), np.float32)
+    for d, row in enumerate(rows):
+        for t, (col, weight) in enumerate(row):
+            cols[d, t], vals[d, t] = col, weight
+    cols.flags.writeable = vals.flags.writeable = False
+    return cols, vals
+
+
+def _resize_area_f32(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(..., INTER_AREA)`` of a float32 image by a factor that is
+    not an integer, bit for bit: each source row summed along x in the
+    table's order (``buf += S * alpha``), then the rows of each output row
+    (``sum = beta * buf`` for the first, ``sum += beta * buf`` after), in
+    float32."""
+    w, h = size
+    xc, xv = _area_table(image.shape[1], w)
+    yc, yv = _area_table(image.shape[0], h)
+    extra = (1,) * (image.ndim - 2)
+    buf = np.zeros((image.shape[0], w) + image.shape[2:], np.float32)
+    for t in range(xc.shape[1]):
+        buf += image[:, xc[:, t]] * xv[:, t].reshape(1, w, *extra)
+    out = buf[yc[:, 0]] * yv[:, 0].reshape(h, 1, *extra)
+    for t in range(1, yc.shape[1]):
+        out += buf[yc[:, t]] * yv[:, t].reshape(h, 1, *extra)
+    return out
+
+
 def resize(image: np.ndarray, size: tuple[int, int], interpolation: str) -> np.ndarray:
     """``cv2.resize(image, size, interpolation=INTER_AREA | INTER_LINEAR |
     INTER_CUBIC)`` of a float image (H, W) or (H, W, C); ``size`` is (w, h).
-    'area' is for downscaling, as the preprocessor uses it."""
+    'area' is for downscaling, as the preprocessor uses it; a float32 image
+    shrunk by a factor that is not an integer takes OpenCV's own float32
+    arithmetic (``_resize_area_f32``), the rest are filtered in float64."""
+    integral = image.shape[1] % size[0] == 0 and image.shape[0] % size[1] == 0
+    if interpolation == "area" and image.dtype == np.float32 and not integral:
+        return _resize_area_f32(image, size)
     return _separable(image, interpolation, size)
 
 

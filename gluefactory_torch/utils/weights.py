@@ -232,6 +232,10 @@ _RENAMES = [
 ]
 
 
+# a LayerNorm: LightGlue's 'ffn_norm', SuperGlue's MLP 'norm_0', 'norm_1', ...
+_NORM = re.compile(r"norm(_\d+)?$")
+
+
 def _flax_path(key: str) -> list[str]:
     parts = re.findall(r"\['([^']*)'\]", key)
     if not parts or "".join(f"['{p}']" for p in parts) != key:
@@ -254,7 +258,7 @@ def _torch_name(path: list[str]) -> str:
         names.append(m)
     if leaf == "kernel":
         leaf = "weight"
-    elif leaf == "scale" and modules and modules[-1].endswith("norm"):
+    elif leaf == "scale" and modules and _NORM.search(modules[-1]):
         leaf = "weight"  # LayerNorm scale; ChannelAffine keeps 'scale'
     return ".".join(names + [leaf])
 
@@ -326,7 +330,7 @@ def flax_key(name: str) -> str:
         path = pattern.sub(repl, path)
     parts = path.rstrip(".").split(".")
     if leaf == "weight":
-        leaf = "scale" if parts[-1].endswith("norm") else "kernel"
+        leaf = "scale" if _NORM.search(parts[-1]) else "kernel"
     return "".join(f"['{p}']" for p in ["params", *parts, leaf])
 
 

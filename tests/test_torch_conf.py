@@ -19,7 +19,8 @@ from gluefactory_tpu.models import get_model as jax_get_model
 torch.set_num_threads(2)
 
 PORTED = ["extractors.superpoint", "matchers.lightglue", "matchers.homography_matcher",
-          "matchers.match_refiner", "two_view_pipeline"]
+          "matchers.match_refiner", "two_view_pipeline", "extractors.sift",
+          "matchers.superglue", "matchers.nearest_neighbor_matcher"]
 
 
 def _leaves(conf: dict, prefix: str = "") -> dict:
@@ -113,6 +114,9 @@ def test_recipes_still_build():
     ("extractors.superpoint", {"training_outputs": True}),
     ("extractors.superpoint", {"loss": {"loc_weight": 1.0, "cell_labels": "soft"}}),
     ("matchers.lightglue", {"depth_confidence": 0.95, "width_confidence": 0.99}),
+    ("matchers.superglue", {"norm": "none", "input_dim": 128}),
+    ("matchers.nearest_neighbor_matcher", {"ratio_thresh": 0.8, "mutual_check": False}),
+    ("extractors.sift", {"contrast_threshold": 0.02, "rootsift": False}),
 ])
 def test_ported_switches_build(name, conf):
     """The keys this slice ported left ``unported_conf`` and build."""

@@ -143,6 +143,16 @@ item = HomographyDataset({{"synthetic": True, "image_size": 64,
 assert item["view1"]["image"].shape == (64, 64, 3) and item["H_0to1"].shape == (3, 3)
 flagship = hpatches_flagship_conf()
 assert load_model(flagship["model"], flagship["checkpoint"], "cpu").matcher is not None
+# SIFT and SuperGlue from its blob by the benchmark recipe, on a gate pair
+from gluefactory_torch.recipes import hpatches_sift_superglue_conf
+
+sg = hpatches_sift_superglue_conf()
+sg["model"]["extractor"]["max_num_keypoints"] = 64
+sg_model = load_model(sg["model"], sg["checkpoint"], "cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    pred, quality = chip_smoke.run_pair(sg_model, estimator,
+                                        *chip_smoke.gate_pairs(Path(tmp) / "gate", "cpu")[0])
+    assert pred["matches0"].shape == (1, 64) and int((pred["matches0"] > -1).sum()) > 10
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -90,3 +90,29 @@ def test_stage1_and_stage6_starts(caplog):
     for name, value in model.state_dict().items():
         ref = extractor[name] if name.startswith("extractor.") else matcher[name]
         assert torch.equal(value, ref), name
+
+
+# benchmark recipe -> the folder of outputs/results/hpatches whose conf.yaml it is
+BENCHMARKS = {"hpatches_sift_superglue_conf": "sift_sg_stage1",
+              "hpatches_sift_nn_conf": "sift_nn",
+              "hpatches_sp_nn_conf": "sp0b_nn_com"}
+
+
+@pytest.mark.parametrize("recipe", sorted(BENCHMARKS))
+def test_benchmark_recipe_is_its_conf(recipe):
+    path = ROOT_PATH / "outputs/results/hpatches" / BENCHMARKS[recipe] / "conf.yaml"
+    conf = getattr(R, recipe)()
+    assert conf == yaml.safe_load(path.read_text())
+    assert conf["checkpoint"] is None or (ROOT_PATH / conf["checkpoint"]).exists()
+
+
+@pytest.mark.parametrize("name", sorted(R.GATE_BOUNDS))
+def test_gate_confs_build_and_load_their_blobs(name):
+    """Each JAX gate's pipeline builds and takes its blob strictly (the
+    blob's matcher, or its extractor, fills every parameter)."""
+    from gluefactory_torch.utils.weights import load_blob_into
+
+    conf, blob = R.gate_conf(name)
+    model = build_model("two_view_pipeline", conf, device="cpu")
+    load_blob_into(model, blob, {"matcher": 4})
+    assert model.extractor.conf["max_num_keypoints"] in (512, 1024)

@@ -84,7 +84,18 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      (c) SIFT+SuperGlue on phase 8's famA and famB (2048 slots, 9 layers, Sinkhorn
      50, the RANSAC sweep) held to the JAX package's summaries, 36 K2 launches
      and no K1 a pair, the time of SIFT, SuperGlue and Sinkhorn a pair; (d)
-     SIFT+NN and SuperPoint+NN on famA's first 8 sequences against JAX's.
+     SIFT+NN and SuperPoint+NN on famA's first 8 sequences against JAX's;
+ 16. SIFT-feature training (see check_sift_training): (a) the cached engine's SIFT
+     pool (recipes.sift_sg_cached_conf: 768 + 64 images, 448x448, 512 slots,
+     on_host) extracted on the card, against the CPU, its cache read back bit for
+     bit; (b) SIFT+LightGlue stage 2 (from weights/lg_sift_stage1) and (c)
+     SIFT+SuperGlue (9 layers, Sinkhorn 50, from the initialisation) at batch 32:
+     step 0 on the kernel path against the plain path, train.training cut to 2
+     epochs of 4 steps, a --restore, 12 + 12 and 36 + 0 launches a step, the
+     Sinkhorn's share of a SuperGlue step; (d) sg_sift_stage1 and lg_sift_stage2
+     validated on the port's val pool against the JAX package's on its own; (e)
+     the JAX gates of lg_sift_stage1, lg_sift_stage2 out of distribution and
+     SuperPoint stage 0 + NN, and the sift+lightglue model card (add_scale_ori).
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
@@ -115,11 +126,13 @@ def log(msg: str) -> None:
 # --- phase 4: the flagship on the JAX gate's pairs ----------------------------
 
 GATE_SEQS = 3  # tests/test_trained_quality.py:render_pairs: seeds (424242, s), views 2 and 4
+GATE_FAMILY_SALT = {"a": 0, "b": 777}  # render_pairs' seed salt of each scene family
 
 
-def gate_pairs(root: Path, device):
-    """The JAX gate's 6 pairs, rendered by the port: (image0, image1, H_0to1)
-    with images (360, 480, 3) in [0, 1] on ``device``."""
+def gate_pairs(root: Path, device, family: str = "a"):
+    """The JAX gate's 6 pairs of scene ``family``, rendered by the port:
+    (image0, image1, H_0to1) with images (360, 480, 3) in [0, 1] on
+    ``device``."""
     import numpy as np
     import torch
 
@@ -131,8 +144,9 @@ def gate_pairs(root: Path, device):
 
     pairs = []
     for s in range(GATE_SEQS):
-        seq = root / f"v_qa{s}"
-        render_sequence(seq, np.random.default_rng((424242, s)), (480, 360), family="a")
+        seq = root / f"v_q{family}{s}"
+        render_sequence(seq, np.random.default_rng((424242 + GATE_FAMILY_SALT[family], s)),
+                        (480, 360), family=family)
         for k in (2, 4):
             H = torch.from_numpy(np.loadtxt(seq / f"H_1_{k}").astype(np.float32)).to(device)
             pairs.append((load(seq / "1.ppm"), load(seq / f"{k}.ppm"), H))
@@ -320,45 +334,56 @@ SG_SLOTS = 2048  # SuperGlue on HPatches: SIFT's 2048 slots a view...
 SG_FILLED = 331  # ...of which a famA view fills 331 (outputs/results/hpatches/sift_sg_stage1)
 
 
-def time_superglue_shape(kern: dict, gen, device, sms: int) -> dict:
-    """K2 at SuperGlue's HPatches shape, 1x4x2048x64 in float32 with the key
-    mask of a view whose first SG_FILLED slots hold keypoints: parity with the
-    plain version (float32 tolerance), then timed beside it and SDPA. The
-    bound counts the keys that hold keypoints (the kernel reads every key
+def time_masked_k2(q, k, v, mask, what: str, reps: int = 20) -> dict:
+    """K2 on (q, k, v, mask) in float32: parity with the plain version
+    (float32 tolerance), then timed beside it and SDPA with the same mask.
+    The bound counts each item's valid keys (the kernel reads every key
     tile; the masked ones add no work to the function)."""
     import torch
     import torch.nn.functional as F
 
     from gluefactory_torch.ops import attention as A
 
-    b, h, n, d = 1, 4, SG_SLOTS, 64
-    q, k, v, mask = _attention_inputs(b, h, n, n, d, torch.float32, False, gen, device)
-    mask[:] = False
-    mask[:, :SG_FILLED] = True
-    out, ref = kern["kernel"](q, k, v, mask), kern["plain"](q, k, v, mask)
-    atol = TOLERANCES["float32"][0]
+    b, h, n, d = q.shape
+    out, ref = A.attention_cuda(q, k, v, mask), A.attention_plain(q, k, v, mask)
     err = float((out - ref).abs().max())
-    if err > atol or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"attention at {(b, h, n, n, d)} with {SG_FILLED} keys: "
-                             f"max |err| {err:.3g} over {atol}")
-    kern["max_abs_err"] = max(kern["max_abs_err"], err)
-    ms = graph_ms(lambda: kern["kernel"](q, k, v, mask))
-    plain_ms = graph_ms(lambda: kern["plain"](q, k, v, mask))
+    if err > TOLERANCES["float32"][0] or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"attention at {(b, h, n, n, d)} ({what}): max |err| {err:.3g}")
+    ms = graph_ms(lambda: A.attention_cuda(q, k, v, mask), reps=reps)
+    plain_ms = graph_ms(lambda: A.attention_plain(q, k, v, mask), reps=reps)
     library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask[:, None, None, :]))
-    nbytes = (q.numel() + 2 * b * h * SG_FILLED * d + q.numel()) * 4 + mask.numel()
-    t_tf32, t_f32, t_bytes = attention_bounds(b, h, n, SG_FILLED, d, nbytes)
-    plan = A.plan_attention(b, h, n, n, sms)
-    log(f"  attention         f32 B,H,N,D={b},{h},{n},{d}, {SG_FILLED} keys valid (SuperGlue "
-        f"on HPatches): max |err| {err:.3g} ok; kernel {ms * 1e3:.1f} us, plain "
-        f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us ({library_ms / ms:.2f}x the "
-        f"kernel), bound {max(t_tf32, t_bytes) * 1e3:.2f} us 3xTF32 over the valid keys "
+        q, k, v, attn_mask=mask[:, None, None, :]), reps=reps)
+    valid = int(mask.sum())
+    nbytes = (2 * q.numel() + 2 * h * valid * d) * 4 + mask.numel()
+    t_tf32, t_f32, t_bytes = attention_bounds(1, h, n, valid, d, nbytes)
+    plan = A.plan_attention(b, h, n, n, torch.cuda.get_device_properties(q.device)
+                            .multi_processor_count)
+    share = valid / mask.numel()
+    log(f"  attention         f32 B,H,N,D={b},{h},{n},{d}, {share:.1%} of keys valid ({what}): "
+        f"max |err| {err:.3g} ok; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+        f"SDPA with the mask {library_ms * 1e3:.1f} us ({library_ms / ms:.2f}x the kernel), "
+        f"bound {max(t_tf32, t_bytes) * 1e3:.2f} us 3xTF32 over the valid keys "
         f"({max(t_tf32, t_bytes) / ms:.1%}) / {t_f32 * 1e3:.2f} us f32 CUDA cores; plan rows "
         f"{plan.rows}, {plan.splits} split(s) of {plan.tiles_per_split} tiles")
-    return {"shape": [b, h, n, n, d], "valid_keys": SG_FILLED, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_tf32, t_bytes),
+    return {"shape": [b, h, n, n, d], "valid_keys": valid, "valid_key_share": share,
+            "path": what, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_tf32, t_bytes),
             "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
             "bound_ms_cuda_cores": t_f32, "plan": list(plan), "max_abs_err": err}
+
+
+def time_superglue_shape(kern: dict, gen, device) -> dict:
+    """K2 at SuperGlue's HPatches shape, 1x4x2048x64 in float32 with the key
+    mask of a view whose first SG_FILLED slots hold keypoints."""
+    import torch
+
+    q, k, v, mask = _attention_inputs(1, 4, SG_SLOTS, SG_SLOTS, 64, torch.float32, False, gen,
+                                      device)
+    mask[:] = False
+    mask[:, :SG_FILLED] = True
+    out = time_masked_k2(q, k, v, mask, "SuperGlue on HPatches")
+    kern["max_abs_err"] = max(kern["max_abs_err"], out["max_abs_err"])
+    return out
 
 
 def check_kernels(device):
@@ -481,7 +506,7 @@ def check_kernels(device):
                 f"operations at 989 TFLOP/s, {t_bytes * 1e3:.2f} us of {nbytes / 1e6:.2f} MB), "
                 f"{max(t_ops, t_bytes) / ms:.1%} of it")
         if name == "attention":
-            times.append(time_superglue_shape(kern, gen, device, sms))
+            times.append(time_superglue_shape(kern, gen, device))
         main = times[1]  # 1x4x1024x64: the benchmark path's shape, most of the launches
         results.append({
             "name": name, "route": "cuda", "source": "gluefactory_torch/csrc/attention.cu",
@@ -1758,13 +1783,12 @@ def _check_stage4(device, root: Path, report: dict) -> tuple[dict, dict]:
 
     from gluefactory_torch.core.config import merge
     from gluefactory_torch.datasets import get_dataset
-    from gluefactory_torch.datasets.homographies_ondevice import upload_pool
-    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.datasets.homographies_ondevice import (
+        OnDeviceHomographyDataset,
+        upload_pool,
+    )
     from gluefactory_torch.recipes import stage4_conf
-    from gluefactory_torch.train import Trainer, training
-    from gluefactory_torch.utils.weights import decode_msgpack
-
-    from gluefactory_torch.datasets.homographies_ondevice import OnDeviceHomographyDataset
+    from gluefactory_torch.train import Trainer
 
     conf = merge(stage4_conf(), STAGE4_CUTS)
     dataset = get_dataset(conf["data"]["name"])(conf["data"])
@@ -1841,44 +1865,20 @@ def _check_stage4(device, root: Path, report: dict) -> tuple[dict, dict]:
     del runs
     torch.cuda.empty_cache()
 
-    run = root / "stage4"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    A.reset_launches()
-    t = time.perf_counter()
-    with StepWatch() as watch:
-        trainer, history = training(conf, run, device=device, pool=pool)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t
-    launches = dict(A.launches)
-    peak = torch.cuda.max_memory_allocated()
-    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
-    if bad or any(h["skipped"] for h in history):
-        raise AssertionError(f"stage-4 steps: non-finite {bad}, skipped "
-                             f"{[h['skipped'] for h in history]}")
-    n_steps = conf["train"]["epochs"] * conf["data"]["steps_per_epoch"]
-    if watch.launches != [{"attention_rotary": 12, "attention": 12}] * n_steps:
-        raise AssertionError(f"stage-4 kernel launches by step: {watch.launches}")
-    best = decode_msgpack((run / "checkpoint_best.ckpt").read_bytes())
+    launches, report["training"] = train_cut(conf, root / "stage4", pool, device, "lightglue",
+                                             "(c)")
     engine_ms = []
     for s in range(ENGINE_SEEDS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.dataset.make_batch(pool, 1000 + s)
+        dataset.make_batch(pool, 1000 + s)
         torch.cuda.synchronize()
         engine_ms.append((time.perf_counter() - t0) * 1e3)
-    step_ms = float(np.median([h["ms"] for h in history[1:]]))
-    report.update(steps=len(history), seconds=seconds, median_step_ms=step_ms,
-                  peak_gib=peak / 2**30, engine_ms=float(np.median(engine_ms)),
-                  best_epoch=int(best["epoch"]), launches=launches)
-    log(f"  (c) {len(history)} steps in {seconds:.1f} s (4 evaluations included): losses "
-        f"{[round(h['loss/total'], 4) for h in history]}; median step {step_ms:.1f} ms "
-        f"(steps 2-{len(history)}, host clock), the engine {report['engine_ms']:.2f} ms of it "
-        f"({100 * report['engine_ms'] / step_ms:.1f}%, median of {ENGINE_SEEDS} batches alone); "
-        f"peak memory {report['peak_gib']:.2f} GiB; launches {launches} (12 + 12 a step); "
-        f"checkpoint_best epoch {best['epoch']} by {conf['train']['best_key']}")
-    report["restore"] = check_restore(conf, run, root / "stage4_restored", history, device,
-                                      pool, "(c)")
+    report["engine_ms"] = float(np.median(engine_ms))
+    step_ms = report["training"]["median_step_ms"]
+    log(f"  (c) the engine {report['engine_ms']:.2f} ms a batch alone "
+        f"({100 * report['engine_ms'] / step_ms:.1f}% of the median step; median of "
+        f"{ENGINE_SEEDS} batches)")
     return launches, report
 
 
@@ -1989,7 +1989,11 @@ SIFT_MEDIAN_DOT = 0.9999
 GATE_AGREE = 0.99
 GATE_LAUNCHES = {"sift_superglue": {"attention_rotary": 0, "attention": 36},
                  "sift_lightglue": {"attention_rotary": 12, "attention": 12},
-                 "superpoint_nn": {"attention_rotary": 0, "attention": 0}}
+                 "superpoint_nn": {"attention_rotary": 0, "attention": 0},
+                 "sift_lightglue_stage1": {"attention_rotary": 12, "attention": 12},
+                 "sift_lightglue_ood": {"attention_rotary": 12, "attention": 12},
+                 "superpoint_nn_stage0": {"attention_rotary": 0, "attention": 0}}
+SIFT_GATES = ("sift_superglue", "sift_lightglue", "superpoint_nn")  # phase 15(b)
 # (c), (d): the JAX package's summaries on phase 8's sets (RANSAC seed 0, on the CPU):
 # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_superglue.py --conf <folder of
 # outputs/results/hpatches> --sets famA=... famB=... [--max_seqs 8]
@@ -2085,24 +2089,26 @@ def sift_card_against_cpu(device, pairs) -> dict:
     return out
 
 
-def check_sift_gates(device, pairs) -> dict:
-    """The JAX gates (recipes.GATE_BOUNDS) on their 6 pairs: each pipeline
-    from its blob through the kernels and through the plain versions, the
-    medians within the gate's bounds, matches0 agreeing on GATE_AGREE of the
-    slots and the launches of GATE_LAUNCHES a pair. Returns the launches."""
+def check_sift_gates(device, pairs: dict, names, tag: str = "(b)") -> dict:
+    """The JAX gates ``names`` (keys of recipes.GATE_BOUNDS) on their 6 pairs
+    (``pairs`` by scene family, recipes.GATE_FAMILY): each pipeline from its
+    blob through the kernels and through the plain versions, the medians
+    within the gate's bounds, matches0 agreeing on GATE_AGREE of the slots
+    and the launches of GATE_LAUNCHES a pair. Returns the launches."""
     import numpy as np
     import torch
 
     from gluefactory_torch.flagship import RANSAC_CONF
     from gluefactory_torch.models import build_model
     from gluefactory_torch.ops import attention as A
-    from gluefactory_torch.recipes import GATE_BOUNDS, gate_conf
+    from gluefactory_torch.recipes import GATE_BOUNDS, GATE_FAMILY, gate_conf
     from gluefactory_torch.robust_estimators import load_estimator
     from gluefactory_torch.utils.weights import load_blob_into
 
     estimator = load_estimator("homography", "ransac")(RANSAC_CONF)
     launches = {"attention_rotary": 0, "attention": 0}
-    for name, bounds in GATE_BOUNDS.items():
+    for name in names:
+        bounds, family_pairs = GATE_BOUNDS[name], pairs[GATE_FAMILY[name]]
         models = []
         for impl in ("auto", "xla"):
             conf, blob = gate_conf(name)
@@ -2110,11 +2116,11 @@ def check_sift_gates(device, pairs) -> dict:
             model = build_model("two_view_pipeline", conf, device=device)
             load_blob_into(model, blob, {"matcher": 4})
             models.append(model)
-        run_pair(models[0], estimator, *pairs[0])  # warm-up
+        run_pair(models[0], estimator, *family_pairs[0])  # warm-up
         torch.cuda.synchronize()
         stats = {k: [] for k in ("matches", "prec1", "prec3", "h_err")}
         agree, ms = [], []
-        for i, (img0, img1, H) in enumerate(pairs):
+        for i, (img0, img1, H) in enumerate(family_pairs):
             A.reset_launches()
             t = time.perf_counter()
             pred, quality = run_pair(models[0], estimator, img0, img1, H)
@@ -2135,7 +2141,7 @@ def check_sift_gates(device, pairs) -> dict:
                 stats[k].append(quality[k])
         med = {k: float(np.median(v)) for k, v in stats.items()}
         ok = all(med[k] > v if k != "h_err" else med[k] < v for k, v in bounds.items())
-        log(f"  (b) {name}: medians {json.dumps({k: round(v, 4) for k, v in med.items()})} "
+        log(f"  {tag} {name} (family {GATE_FAMILY[name]}): medians {json.dumps({k: round(v, 4) for k, v in med.items()})} "
             f"against the JAX gate {json.dumps(bounds)} (h_err below, the rest above): "
             f"{'passes' if ok else 'FAILS'}; matches0 kernel vs plain agree min "
             f"{min(agree):.4f}; median pair {np.median(ms):.1f} ms; launches a pair "
@@ -2282,9 +2288,434 @@ def check_sift_superglue(device, root: Path) -> tuple[dict, dict]:
     phase 8's sets. Returns ({path: attention launches}, what is printed)."""
     pairs = gate_pairs(root / "gate15", device)
     report = {"sift": sift_card_against_cpu(device, pairs)}
-    gates = check_sift_gates(device, pairs)
+    gates = check_sift_gates(device, {"a": pairs}, SIFT_GATES)
     hpatches, report["hpatches"] = check_sift_hpatches(device, root)
     return {"gates": gates, "sift_superglue": hpatches}, report
+
+
+# --- phase 16: SIFT-feature training -------------------------------------------------
+
+# the three cached SIFT recipes cut as phase 13 cuts stage 4: 250 -> 4 steps an epoch,
+# 32 -> 2 epochs, an evaluation (its 4 val batches of 32) at each epoch end; the pool is
+# the recipes' 768 + 64 images at 448x448, 512 slots
+SIFT_TRAIN_CUTS = {"data": {"steps_per_epoch": 4},
+                   "train": {"epochs": 2, "eval_every_iter": 4, "log_every_iter": 1}}
+SIFT_POOL_CPU_IMAGES = 4  # (a): pool images extracted on the CPU too
+SIFT_POOL_SLOT_SHARE = 1e-3  # (a): slots whose validity may differ
+SIFT_POOL_PX = 1e-3  # (a): each CPU keypoint against the card's at its position
+SIFT_POOL_MIN_DOT = 0.999  # (a): their RootSIFT descriptors (float16), each
+STEP_LAUNCHES = {"lightglue": {"attention_rotary": 12, "attention": 12},
+                      "superglue": {"attention_rotary": 0, "attention": 36}}
+SG_LOSS_RTOL = 1e-4  # (c) step 0, kernel path against plain path
+SG_GRAD_RTOL = 1e-2  # (c): each gradient, of its tensor's largest
+# (c): the key biases' gradients vanish (a bias on the keys adds one constant to a
+# query's logits, which the softmax removes): both paths' are rounding, held below this
+# share of the largest gradient of any parameter
+SG_KEY_BIAS_SHARE = 1e-6
+SINKHORN_REPS = 5  # (c): Sinkhorn's forward and backward timed alone on a step's inputs
+# (d) the JAX package's validation of the trained blobs on its own val pools (the
+# trainer's do_evaluation, 4 batches of 32), data seeds 0, 1, 2, on the CPU:
+# JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_sift_train.py --side jax
+SIFT_VAL_JAX = {
+    "superglue": {"loss/total": (0.30623293155804276, 0.356059126497712, 0.3076176628819667),
+                  "metric/match_recall": (0.9013815494254231, 0.8684506707359105,
+                                          0.8916087301913649),
+                  "metric/match_precision": (0.9544521011412144, 0.9438077034428716,
+                                             0.9495823695324361)},
+    "lightglue": {"loss/total": (0.8415708229877055, 0.96330854925327, 0.9484152961522341),
+                  "metric/match_recall": (0.9394082520157099, 0.9366203914396465,
+                                          0.9490801836363971),
+                  "metric/match_precision": (0.9860873203724623, 0.9832410882227123,
+                                             0.980944786220789)},
+}
+# How far beyond JAX's range the port may read: 1.5 times the farthest the port's own
+# values fell outside it on the CPU over data seeds 0-2 (--side port: SuperGlue's loss
+# 0.042 below, recall 0.021 and precision 0.005 above; LightGlue's within 0.004). The
+# offset is the pools': each package's model on the other's val pool reads the other's
+# numbers (--side cross), and the port's procedural scenes give SIFT 4% fewer keypoints
+# an image.
+SIFT_VAL_MARGIN = {"loss/total": 0.065, "metric/match_recall": 0.035,
+                   "metric/match_precision": 0.01}
+
+
+def sift_pool_card_against_cpu(conf: dict, host: dict) -> dict:
+    """(a) The first SIFT_POOL_CPU_IMAGES images of the card's train pool
+    against the same images extracted on the CPU: validity, and each CPU
+    keypoint against the card's at its position with the nearest orientation
+    (slots of keypoints that tie in response may be ordered either way)."""
+    import numpy as np
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets import get_dataset
+
+    cpu_conf = merge(conf, {"pool_size": SIFT_POOL_CPU_IMAGES, "pool_cache": False})
+    t = time.perf_counter()
+    cpu = get_dataset(conf["name"])(cpu_conf).build_pool("train", "cpu")
+    seconds = time.perf_counter() - t
+    card = {k: v[:SIFT_POOL_CPU_IMAGES] for k, v in host.items() if k != "source_size"}
+    share = float((card["keypoint_valid"] != cpu["keypoint_valid"]).mean())
+    worst_px, dots = 0.0, []
+    for b in range(SIFT_POOL_CPU_IMAGES):
+        vc, vg = cpu["keypoint_valid"][b], card["keypoint_valid"][b]
+        dist = np.linalg.norm(cpu["keypoints"][b][vc][:, None] - card["keypoints"][b][vg][None],
+                              axis=-1)
+        dang = np.abs((np.rad2deg(cpu["oris"][b][vc][:, None] - card["oris"][b][vg][None])
+                       + 180) % 360 - 180)
+        j = (dist + 1e-3 * dang).argmin(1)
+        worst_px = max(worst_px, float(dist[np.arange(len(j)), j].max()))
+        dots.append((cpu["descriptors"][b][vc].astype(np.float32)
+                     * card["descriptors"][b][vg][j].astype(np.float32)).sum(-1))
+    dots = np.concatenate(dots)
+    out = {"cpu_s": seconds, "validity_share": share, "keypoints": int(len(dots)),
+           "max_px": worst_px, "min_dot": float(dots.min())}
+    log(f"  (a) first {SIFT_POOL_CPU_IMAGES} images on the CPU ({seconds:.1f} s): validity "
+        f"differs on {share:.2g} of slots (at most {SIFT_POOL_SLOT_SHARE}); {len(dots)} "
+        f"keypoints within {worst_px:.3g} px of the card's (at most {SIFT_POOL_PX}); RootSIFT "
+        f"dot products min {out['min_dot']:.6f} (at least {SIFT_POOL_MIN_DOT})")
+    if not (share <= SIFT_POOL_SLOT_SHARE and worst_px <= SIFT_POOL_PX
+            and out["min_dot"] >= SIFT_POOL_MIN_DOT):
+        raise AssertionError(f"SIFT pool on the card against the CPU: {out}")
+    return out
+
+
+def sg_step0(trainer, pool, seed: int):
+    """A SuperGlue training step without the update: (loss, gradients)."""
+    model = trainer.model
+    batch = trainer.batch(pool, seed)
+    model.zero_grad(set_to_none=True)
+    losses, _ = model.loss(model(batch), batch)
+    loss = losses["total"].mean()
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.matcher.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def sg_against(ref, run) -> dict:
+    """Step 0 on the kernel path (``run``) against the plain path (``ref``):
+    the loss, each gradient against its tensor's largest, the key biases'
+    against the largest gradient of any parameter (SG_KEY_BIAS_SHARE)."""
+    largest = max(float(g.abs().max()) for g in ref[1].values())
+    errs, key_bias = {}, 0.0
+    for name, g in ref[1].items():
+        if name.endswith(".k.bias"):
+            key_bias = max(key_bias, float(g.abs().max()), float(run[1][name].abs().max()))
+            continue
+        errs[name] = float((run[1][name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+    worst = max(errs, key=errs.get)
+    return {"loss_rel": abs(run[0] - ref[0]) / abs(ref[0]), "worst": errs[worst],
+            "worst_param": worst, "median": float(sorted(errs.values())[len(errs) // 2]),
+            "key_bias_share": key_bias / largest,
+            "passes": (abs(run[0] - ref[0]) <= SG_LOSS_RTOL * abs(ref[0])
+                       and errs[worst] <= SG_GRAD_RTOL and key_bias <= SG_KEY_BIAS_SHARE * largest)}
+
+
+def train_cut(conf: dict, run: Path, pool, device, matcher: str, tag: str) -> tuple[dict, dict]:
+    """``training(conf)`` through the kernels: finite, none skipped, the
+    launches of STEP_LAUNCHES[matcher] a step, checkpoint_best, a
+    --restore bit for bit; the median step and the peak memory. Returns
+    (the training run's attention launches, what is printed)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.train import training
+    from gluefactory_torch.utils.weights import decode_msgpack
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t = time.perf_counter()
+    with StepWatch() as watch:
+        trainer, history = training(conf, run, device=device, pool=pool)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches, peak = dict(A.launches), torch.cuda.max_memory_allocated()
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    if bad or any(h["skipped"] for h in history):
+        raise AssertionError(f"{tag} steps: non-finite {bad}, skipped "
+                             f"{[h['skipped'] for h in history]}")
+    n_steps = conf["train"]["epochs"] * conf["data"]["steps_per_epoch"]
+    if watch.launches != [STEP_LAUNCHES[matcher]] * n_steps:
+        raise AssertionError(f"{tag} kernel launches by step: {watch.launches}")
+    best = decode_msgpack((run / "checkpoint_best.ckpt").read_bytes())
+    step_ms = float(np.median([h["ms"] for h in history[1:]]))
+    report = {"steps": len(history), "seconds": seconds, "median_step_ms": step_ms,
+              "peak_gib": peak / 2**30, "best_epoch": int(best["epoch"]), "launches": launches,
+              "recall": history[-1]["metric/match_recall"]}
+    log(f"  {tag} {len(history)} steps in {seconds:.1f} s (4 evaluations included): losses "
+        f"{[round(h['loss/total'], 4) for h in history]}; median step {step_ms:.1f} ms "
+        f"(steps 2-{len(history)}, host clock); peak memory {report['peak_gib']:.2f} GiB; "
+        f"launches {launches} ({STEP_LAUNCHES[matcher]} a step); checkpoint_best epoch "
+        f"{best['epoch']} by {conf['train']['best_key']}")
+    report["restore"] = check_restore(conf, run, run.with_name(run.name + "_restored"), history,
+                                      device, pool, tag)
+    return launches, report
+
+
+def time_sinkhorn(captured: dict) -> dict:
+    """Sinkhorn (50 iterations) alone on the inputs of a training step, forward
+    and forward+backward, each synchronised, median of SINKHORN_REPS."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.ops.assignment import log_optimal_transport
+
+    sim, bins, kwargs = captured["args"]
+    grad = torch.randn(sim.shape[0], sim.shape[1] + 1, sim.shape[2] + 1, device=sim.device,
+                       generator=torch.Generator(sim.device).manual_seed(0))
+    ms = {"forward": [], "forward_backward": []}
+    for rep in range(SINKHORN_REPS + 1):
+        for kind in ms:
+            s = sim.detach().requires_grad_(kind != "forward")
+            b = bins.detach().requires_grad_(kind != "forward")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.set_grad_enabled(kind != "forward"):
+                z = log_optimal_transport(s, b, **kwargs)
+                if kind != "forward":
+                    z.backward(grad)
+            torch.cuda.synchronize()
+            if rep:  # the first is a warm-up
+                ms[kind].append((time.perf_counter() - t) * 1e3)
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def validate_blob(conf: dict, blob, device, pools: dict) -> dict:
+    """The trainer's validation (``do_evaluation`` of the val loader, the
+    recipe's 4 batches of 32) of ``blob`` loaded strictly into the recipe's
+    model, on the uploaded val pool: loss/total, match recall and precision."""
+    from gluefactory_torch.train import Trainer, do_evaluation, make_eval_forward
+
+    trainer = Trainer(conf, device=device, weights=blob, pool=pools["train"])
+    forward = make_eval_forward(trainer.model, lambda pool, item: trainer.batch(pool, item, "val"))
+    results = do_evaluation(trainer.model, trainer.dataset.get_data_loader("val"), forward,
+                            pools["val"])
+    return {k: float(results[k]) for k in SIFT_VAL_JAX["superglue"]}
+
+
+def check_trained_validation(device, pools: dict) -> dict:
+    """(d) sg_sift_stage1 in the SuperGlue recipe and lg_sift_stage2 in the
+    LightGlue stage-2 one on the port's val pool, each reading within the
+    range of the JAX package's on its own val pools (SIFT_VAL_JAX, data seeds
+    0-2) widened by SIFT_VAL_MARGIN."""
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.recipes import LG_SIFT_WEIGHTS, SG_SIFT_WEIGHTS
+    from gluefactory_torch.recipes import sift_lg_stage2_conf, sift_sg_cached_conf
+
+    report, failures = {}, []
+    for name, recipe, blob in (("superglue", sift_sg_cached_conf, SG_SIFT_WEIGHTS),
+                               ("lightglue", sift_lg_stage2_conf, LG_SIFT_WEIGHTS)):
+        conf = merge(recipe(), SIFT_TRAIN_CUTS)
+        report[name] = ours = validate_blob(conf, blob, device, pools)
+        for key, value in ours.items():
+            lo, hi = min(SIFT_VAL_JAX[name][key]), max(SIFT_VAL_JAX[name][key])
+            margin = SIFT_VAL_MARGIN[key]
+            ok = lo - margin <= value <= hi + margin
+            log(f"  (d) {name} from {blob.name}: {key} {value:.4f}; JAX {lo:.4f} to {hi:.4f} "
+                f"over data seeds 0-2 (margin {margin} beyond) {'ok' if ok else 'FAILS'}")
+            if not ok:
+                failures.append((name, key, value))
+    if failures:
+        raise AssertionError(f"trained blobs' validation against the JAX package: {failures}")
+    return report
+
+
+def check_model_card(device, pair) -> dict:
+    """(e) ``recipes.sift_lightglue_conf`` (SIFT, 2048 slots; LightGlue with
+    ``add_scale_ori``) from the flax-style initialisation, every mutual match
+    kept (untrained), on one gate pair: the kernel path against the plain
+    path from the same parameters, one K1 and one K2 launch a view and layer
+    (9 layers, the conf's default)."""
+    import torch
+
+    from gluefactory_torch.flagship import RANSAC_CONF
+    from gluefactory_torch.models import build_model
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.recipes import sift_lightglue_conf
+    from gluefactory_torch.robust_estimators import load_estimator
+
+    estimator = load_estimator("homography", "ransac")(RANSAC_CONF)
+    models = []
+    for impl in ("auto", "xla"):
+        conf = sift_lightglue_conf()["model"]
+        conf["matcher"].update(attention=impl, filter_threshold=0.0)
+        torch.manual_seed(0)
+        models.append(build_model("two_view_pipeline", conf, device=device))
+    models[1].load_state_dict(models[0].state_dict())
+    A.reset_launches()
+    pred, _ = run_pair(models[0], estimator, *pair)
+    launches = dict(A.launches)
+    layers = models[0].matcher.conf["n_layers"]
+    ppred, _ = run_pair(models[1], estimator, *pair)
+    agree = float((pred["matches0"] == ppred["matches0"]).float().mean())
+    matches = int((pred["matches0"] > -1).sum())
+    log(f"  (e) sift+lightglue (add_scale_ori, flax init, 2048 slots): "
+        f"{int(pred['keypoint_valid0'].sum())} keypoints, {matches} mutual matches; matches0 "
+        f"kernel vs plain agree {agree:.4f} (at least {GATE_AGREE}); launches {launches}")
+    if (agree < GATE_AGREE or matches < 20
+            or launches != {"attention_rotary": 2 * layers, "attention": 2 * layers}):
+        raise AssertionError(f"sift+lightglue model card: agreement {agree}, launches "
+                             f"{launches}, {matches} matches")
+    return launches
+
+
+def check_sift_training(device, root: Path) -> tuple[dict, dict]:
+    """Phase 16: (a) the SIFT pool of the cached SIFT recipes (768 + 64
+    images, 448x448, 512 slots, contrast 0.02, on_host) extracted on the
+    card under a temporary DATA_PATH, against the CPU, its cache read back
+    bit for bit; (b) SIFT+LightGlue stage 2 from lg_sift_stage1 and (c)
+    SIFT+SuperGlue from the flax-style initialisation: step 0 on the kernel
+    path against the plain path, then ``training`` cut by SIFT_TRAIN_CUTS
+    and a --restore; (d) the trained blobs' validation against the JAX
+    package's; (e) the three new JAX gates and the sift+lightglue model card.
+    Returns ({path: attention launches}, what is printed)."""
+    from gluefactory_torch import settings
+
+    data_path, settings.DATA_PATH = settings.DATA_PATH, root / "data"  # not the repository's
+    try:
+        return _check_sift_training(device, root)
+    finally:
+        settings.DATA_PATH = data_path
+
+
+def _check_sift_training(device, root: Path) -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets import get_dataset
+    from gluefactory_torch.datasets.homographies_ondevice import (
+        OnDeviceHomographyDataset,
+        upload_pool,
+    )
+    from gluefactory_torch.models.matchers import superglue as SG
+    from gluefactory_torch.recipes import sift_lg_stage2_conf, sift_sg_cached_conf
+    from gluefactory_torch.train import Trainer
+
+    report, launches = {}, {}
+    conf = merge(sift_sg_cached_conf(), SIFT_TRAIN_CUTS)
+    dataset = get_dataset(conf["data"]["name"])(conf["data"])
+    drawn, draw = [], OnDeviceHomographyDataset.build_pool
+
+    def timed_draw(self, *args, **kwargs):  # the source images, drawn on the host
+        t0 = time.perf_counter()
+        out = draw(self, *args, **kwargs)
+        drawn.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    OnDeviceHomographyDataset.build_pool = timed_draw
+    try:
+        host = {split: dataset.build_pool(split, device) for split in ("train", "val")}
+    finally:
+        OnDeviceHomographyDataset.build_pool = draw
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    n_images = sum(len(p["keypoints"]) for p in host.values())
+    extract_s = seconds - sum(drawn)
+    nbytes = sum(v.nbytes for p in host.values() for v in p.values())
+    report["pool"] = {"seconds": seconds, "draw_s": sum(drawn), "extract_s": extract_s,
+                      "images_per_s": n_images / extract_s, "bytes": nbytes,
+                      "keypoints": int(host["train"]["keypoint_valid"].sum())}
+    log(f"  (a) SIFT pool of {conf['data']['pool_size']} + {conf['data']['val_pool_size']} "
+        f"images (448x448, 512 slots, contrast 0.02) in {seconds:.1f} s: "
+        f"{sum(drawn):.1f} s drawing the source images on the host, {extract_s:.1f} s "
+        f"extracting on the card and caching ({n_images / extract_s:.1f} images/s); "
+        f"{report['pool']['keypoints']} keypoints in the train pool; {nbytes / 1e6:.1f} MB "
+        f"({sorted(host['train'])})")
+    for split in host:
+        with np.load(dataset.pool_cache_path(split)) as blob:
+            again = {k: blob[k] for k in blob.files}
+        if again.keys() != host[split].keys() or any(
+                again[k].dtype != v.dtype or not np.array_equal(again[k], v)
+                for k, v in host[split].items()):
+            raise AssertionError(f"the {split} SIFT pool cache does not read back bit for bit")
+    log("  (a) both cache files read back bit for bit")
+    report["card_vs_cpu"] = sift_pool_card_against_cpu(conf["data"], host["train"])
+    pools = {split: upload_pool(p, device) for split, p in host.items()}
+    seed0 = next(iter(dataset.get_data_loader("train")))
+
+    log("  (b) SIFT+LightGlue stage 2 (sift+lightglue_stage2, from lg_sift_stage1)")
+    lg_conf = merge(sift_lg_stage2_conf(), SIFT_TRAIN_CUTS)
+    runs = {impl: step0(Trainer(merge(lg_conf, {"model": {"matcher": {"attention": impl}}}),
+                                device=device, pool=pools["train"]), pools["train"], seed0)
+            for impl in ("xla", "auto")}
+    reading = against(runs["xla"], runs["auto"])
+    report["lg_step0"] = {k: v for k, v in reading.items() if k != "passes"}
+    log(f"  (b) step 0: loss {runs['auto'][0]:.6f} on the kernel path, {runs['xla'][0]:.6f} on "
+        f"the plain path ({reading['loss_rel']:.2g} relative, tolerance 1e-4); gradients "
+        f"outside {CONFIDENCE_HEADS}* within {reading['worst']:.2g} of their largest (gate "
+        f"{TRAIN_GRAD_RTOL}; median {reading['median']:.2g}); confidence targets flipped "
+        f"{reading['flips']} of {reading['targets']}")
+    if reading["loss_rel"] > 1e-4 or not reading["passes"]:
+        raise AssertionError(f"SIFT+LightGlue step 0: {reading}")
+    del runs
+    torch.cuda.empty_cache()
+    launches["sift_lightglue_train"], report["lightglue"] = train_cut(
+        lg_conf, root / "sift_lg", pools["train"], device, "lightglue", "(b)")
+
+    log("  (c) SIFT+SuperGlue (sift+superglue_cached, from the flax-style initialisation)")
+    calls, attention = [], SG.attention
+
+    def record(*args, **kwargs):  # the kernel path's attentions of step 0
+        if kwargs.get("implementation") != "xla":
+            calls.append((*(t.detach().contiguous() for t in args), kwargs["kv_mask"]))
+        return attention(*args, **kwargs)
+
+    SG.attention = record
+    try:
+        runs = {impl: sg_step0(Trainer(merge(conf, {"model": {"matcher": {"attention": impl}}}),
+                                       device=device, pool=pools["train"]), pools["train"], seed0)
+                for impl in ("xla", "auto")}
+    finally:
+        SG.attention = attention
+    reading = sg_against(runs["xla"], runs["auto"])
+    report["sg_step0"] = {k: v for k, v in reading.items() if k != "passes"}
+    log(f"  (c) step 0: loss {runs['auto'][0]:.6f} on the kernel path, {runs['xla'][0]:.6f} on "
+        f"the plain path ({reading['loss_rel']:.2g} relative, tolerance {SG_LOSS_RTOL}); "
+        f"gradients within {reading['worst']:.2g} of their largest in {reading['worst_param']} "
+        f"(gate {SG_GRAD_RTOL}; median {reading['median']:.2g}); key biases' gradients "
+        f"{reading['key_bias_share']:.2g} of the largest gradient (at most "
+        f"{SG_KEY_BIAS_SHARE})")
+    if not reading["passes"]:
+        raise AssertionError(f"SIFT+SuperGlue step 0: {reading}")
+    del runs
+    # K2 at SuperGlue's training shape on layer 0's first cross-attention of step 0
+    report["k2"] = time_masked_k2(*calls[2], "a SuperGlue training step", reps=5)
+    del calls
+    torch.cuda.empty_cache()
+    captured, transport = {}, SG.log_optimal_transport
+
+    def capture(*args, **kwargs):  # the last call's Sinkhorn inputs, without their graph
+        captured["args"] = (args[0].detach(), args[1].detach(), kwargs)
+        return transport(*args, **kwargs)
+
+    SG.log_optimal_transport = capture
+    try:
+        launches["sift_superglue_train"], report["superglue"] = train_cut(
+            conf, root / "sift_sg", pools["train"], device, "superglue", "(c)")
+    finally:
+        SG.log_optimal_transport = transport
+    sinkhorn = time_sinkhorn(captured)
+    step_ms = report["superglue"]["median_step_ms"]
+    report["superglue"]["sinkhorn_ms"] = sinkhorn
+    log(f"  (c) Sinkhorn (50 iterations on 32x513x513) alone on a step's inputs: forward "
+        f"{sinkhorn['forward']:.1f} ms, forward and backward {sinkhorn['forward_backward']:.1f} "
+        f"ms ({100 * sinkhorn['forward_backward'] / step_ms:.1f}% of the median step)")
+
+    report["validation"] = check_trained_validation(device, pools)
+    del pools
+    torch.cuda.empty_cache()
+
+    pairs = {family: gate_pairs(root / f"gate16{family}", device, family) for family in "ab"}
+    launches["sift_gates16"] = check_sift_gates(
+        device, pairs, ("sift_lightglue_stage1", "sift_lightglue_ood", "superpoint_nn_stage0"),
+        "(e)")
+    card = check_model_card(device, pairs["a"][0])
+    launches["sift_gates16"] = {k: v + card[k] for k, v in launches["sift_gates16"].items()}
+    return launches, report
 
 
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
@@ -2408,6 +2839,12 @@ def main() -> int:
         sift_launches, _ = check_sift_superglue(device, Path(tmp) / "hpatches")
         log(f"  phase 15 took {time.perf_counter() - t:.1f} s")
 
+        log("phase 16: SIFT-feature training (the cached SIFT pool, SIFT+LightGlue, "
+            "SIFT+SuperGlue)")
+        t = time.perf_counter()
+        sift_train_launches, sift_train = check_sift_training(device, Path(tmp) / "sift_train")
+        log(f"  phase 16 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
@@ -2417,7 +2854,9 @@ def main() -> int:
                              "adaptive": adaptive_launches["attention_rotary"],
                              "stage4": stage4_launches["attention_rotary"],
                              "stage1": stage1_launches["attention_rotary"],
-                             "sift_gates": sift_launches["gates"]["attention_rotary"]},
+                             "sift_gates": sift_launches["gates"]["attention_rotary"],
+                             **{path: counts["attention_rotary"]
+                                for path, counts in sift_train_launches.items()}},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
@@ -2428,10 +2867,14 @@ def main() -> int:
                       "stage4": stage4_launches["attention"],
                       "stage1": stage1_launches["attention"],
                       "sift_gates": sift_launches["gates"]["attention"],
-                      "sift_superglue": sift_launches["sift_superglue"]["attention"]},
+                      "sift_superglue": sift_launches["sift_superglue"]["attention"],
+                      **{path: counts["attention"]
+                         for path, counts in sift_train_launches.items()}},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:
+        if r["name"] == "attention":
+            r["times_by_shape"].append(sift_train["k2"])
         r["launches"] = sum(by_path[r["name"]].values())
         r["launches_by_path"] = by_path[r["name"]]
         if r["name"] in grad_errs:

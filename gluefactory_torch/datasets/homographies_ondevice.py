@@ -410,7 +410,12 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
     noise (``desc_noise``), renormalised, and a random share
     (``desc_dropout``) of its keypoints dropped. The views carry these
     features under ``cache``, so a pipeline with ``allow_no_extract`` runs
-    only its matcher. ``on_host`` extraction (the SIFT family) is not ported."""
+    only its matcher. With ``on_host`` (the SIFT recipes) the pool holds every
+    batched output of the extractor, as the JAX package's host worker writes
+    it (``scripts/extract_pool_features.py``: SIFT's ``scales`` and ``oris``
+    too), its parameters from ``experiment``, then ``weights`` with
+    ``remap``; the extraction runs before the pool is uploaded, on the
+    engine's device, as any pool's does."""
 
     default_conf: ClassVar[dict] = {
         "name": "homographies_ondevice_cached",
@@ -421,7 +426,7 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
             "detection_threshold": 0.0005,
             "nms_radius": 4,
             "batch": 16,  # images a forward
-            "on_host": False,  # extract on the host (not ported)
+            "on_host": False,  # every output of the extractor, as JAX's host worker
         },
         "desc_noise": 0.05,
         "desc_dropout": 0.05,
@@ -450,8 +455,9 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
 
     def build_pool(self, split: str = "train", device: str | torch.device = "cuda") -> dict:
         """The feature pool as host arrays: keypoints (n, K, 2), float16
-        descriptors (n, K, D), scores and validity (n, K), and the
-        ``source_size`` they were extracted at. Read from the pool cache
+        descriptors (n, K, D), scores and validity (n, K) (``on_host``: every
+        batched output of the extractor), and the ``source_size`` they were
+        extracted at. Read from the pool cache
         where it holds this conf's file, else extracted on ``device`` and
         written there (atomically: a ``.tmp.npz`` renamed)."""
         if split in self._pools:
@@ -469,49 +475,30 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
         self._pools[split] = pool
         return pool
 
-    def extractor(self, device: str | torch.device) -> torch.nn.Module:
-        """The extractor of ``features_from`` on ``device``, in inference
-        mode: its conf is the keys of ``features_from`` that the extractor's
-        ``default_conf`` names; its weights come from ``experiment`` (a run's
-        last checkpoint, a ``.ckpt`` or a blob; a pipeline's ``['extractor']``
-        scope is stripped), every parameter restored."""
-        from ..models import build_model, get_model
-        from ..utils.experiments import load_experiment, require_restored
-        from ..utils.experiments import restore_from_flat_dict
-
-        fconf = self.conf["features_from"]
-        name = fconf.get("name", "extractors.superpoint")
-        known = get_model(name).default_conf
-        ext_conf = {k: v for k, v in fconf.items() if k in known and k != "name"}
-        with torch.random.fork_rng(devices=[]):  # the JAX engine initialises from key 0
-            torch.manual_seed(0)
-            model = build_model(name, ext_conf, device=device)
-        if fconf.get("experiment"):
-            blob, _ = load_experiment(str(fconf["experiment"]), best=False)
-            flat = {k.replace("['extractor']", ""): v for k, v in blob["state"]["params"].items()}
-            require_restored(restore_from_flat_dict(model, flat), [fconf["experiment"]])
-        return model.eval()
-
     def extract_pool(self, split: str, device: str | torch.device = "cuda") -> dict:
         """The features of the source pool (``OnDeviceHomographyDataset``'s
-        images), ``features_from.batch`` images a forward on ``device``."""
-        if self.conf["features_from"].get("on_host", False):  # where JAX branches
-            raise NotImplementedError("features_from.on_host (host extraction) is not ported")
+        images), ``features_from.batch`` images a forward on ``device``, by
+        the extractor of ``features_from``: its conf is the keys of
+        ``features_from`` that the extractor's ``default_conf`` names, its
+        parameters come from ``experiment`` (and, ``on_host``, from
+        ``weights`` and ``remap``: ``extract_pool_features.build_extractor``)."""
+        from ..models import get_model
+        from ..scripts.extract_pool_features import build_extractor, extract_pool_features
+
+        fconf = self.conf["features_from"]
+        on_host = fconf.get("on_host", False)
+        name = fconf.get("name", "extractors.superpoint")
+        known = get_model(name).default_conf
+        skip = {"name", "weights"} if on_host else {"name"}  # on_host: a blob, loaded
+        ext_conf = {k: v for k, v in fconf.items() if k in known and k not in skip}
         images = OnDeviceHomographyDataset.build_pool(self, split)["images"]
-        n, h, w = images.shape[:3]
-        model = self.extractor(device)
-        size = torch.tensor([[float(w), float(h)]], device=device)
-        keys = ("keypoints", "descriptors", "keypoint_scores", "keypoint_valid")
-        out = {k: [] for k in keys}
-        bs = int(self.conf["features_from"]["batch"])
-        with torch.inference_mode():
-            for i in range(0, n, bs):
-                chunk = torch.from_numpy(images[i:i + bs]).to(device).float() / 255.0
-                pred = model({"image": chunk, "image_size": size.expand(chunk.shape[0], 2)})
-                for k in keys:
-                    out[k].append(pred[k].cpu().numpy())
-        pool = {k: np.concatenate(v) for k, v in out.items()}
-        pool["descriptors"] = pool["descriptors"].astype(np.float16)
+        h, w = images.shape[1:3]
+        blob = (fconf.get("weights"), fconf.get("remap")) if on_host else (None, None)
+        model = build_extractor(name, ext_conf, device, fconf.get("experiment"), *blob)
+        pool = extract_pool_features(images, model, int(fconf["batch"]), device)
+        if not on_host:  # the JAX engine's own extraction keeps these four
+            pool = {k: pool[k] for k in ("keypoints", "descriptors", "keypoint_scores",
+                                         "keypoint_valid")}
         pool["source_size"] = np.asarray([w, h], np.float32)
         return pool
 

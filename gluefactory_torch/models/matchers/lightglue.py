@@ -254,8 +254,6 @@ class LightGlue(BaseModel):
     def __init__(self, conf: dict | None = None):
         super().__init__(conf)
         conf = self.conf
-        if conf["add_scale_ori"]:
-            raise NotImplementedError("add_scale_ori is not ported")
         if conf["dtype"] not in COMPUTE_DTYPES:
             raise NotImplementedError(f"LightGlue does not implement dtype={conf['dtype']!r} "
                                       f"(ported: {sorted(COMPUTE_DTYPES)})")
@@ -263,7 +261,7 @@ class LightGlue(BaseModel):
         d, h, n = conf["descriptor_dim"], conf["num_heads"], conf["n_layers"]
         attn_impl = conf["attention"] or ("auto" if conf["flash"] else "xla")
         self.input_proj = Dense(conf["input_dim"], d)
-        self.posenc = LearnableFourierPositionalEncoding(2, d // h)
+        self.posenc = LearnableFourierPositionalEncoding(4 if conf["add_scale_ori"] else 2, d // h)
         self.transformers = nn.ModuleList(
             TransformerLayer(d, h, attn_impl, self.compute_dtype) for _ in range(n))
         self.log_assignment = nn.ModuleList(MatchAssignment(d) for _ in range(n))
@@ -276,8 +274,8 @@ class LightGlue(BaseModel):
         size1 = data.get("view1", {}).get("image_size", data.get("image_size1"))
         desc0 = self.input_proj(data["descriptors0"])
         desc1 = self.input_proj(data["descriptors1"])
-        rot0 = self.posenc(normalize_keypoints(data["keypoints0"], size0))
-        rot1 = self.posenc(normalize_keypoints(data["keypoints1"], size1))
+        rot0 = self.posenc(self._positions(data, "0", size0))
+        rot1 = self.posenc(self._positions(data, "1", size1))
         cdt = self.compute_dtype
         desc0, desc1 = desc0.to(cdt), desc1.to(cdt)
         rot0, rot1 = tuple(r.to(cdt) for r in rot0), tuple(r.to(cdt) for r in rot1)
@@ -291,6 +289,18 @@ class LightGlue(BaseModel):
         if mask1 is not None:
             pred["matches1"] = pred["matches1"].masked_fill(~mask1, -1)
         return pred
+
+    def _positions(self, data: dict, i: str, size: torch.Tensor) -> torch.Tensor:
+        """The posenc input of view ``i``: normalised keypoints and, with
+        ``add_scale_ori``, the keypoints' scales and orientations, zeros
+        where the data carry none (the cached engine's batches)."""
+        kpts = normalize_keypoints(data[f"keypoints{i}"], size)
+        if not self.conf["add_scale_ori"]:
+            return kpts
+        zeros = kpts.new_zeros(kpts.shape[:-1])
+        extra = [data.get(f"{k}{i}") for k in ("scales", "oris")]
+        return torch.cat([kpts, *(zeros[..., None] if e is None else e[..., None]
+                                  for e in extra)], dim=-1)
 
     def _run_layer(self, i: int, desc0, desc1, rot0, rot1, mask0, mask1):
         layer = self.transformers[i]

@@ -8,14 +8,19 @@ layer. Module and parameter names are the flax ones (``gnn_{i}_{self,cross}``
 with ``q``/``k``/``v``/``out`` and ``mlp.dense_*``/``norm_*``,
 ``kenc.encoder``, ``input_proj``, ``final_proj``, ``bin_score``), so
 ``utils/weights`` loads a committed blob by name. Dense layers start as flax
-initialises them and ``bin_score`` at 1. ``torch_weight_converter`` (the
-official MagicLeap checkpoints) is not ported. ``loss.nll_balancing`` is
-read by neither package: the NLL balances positives and negatives 1:1."""
+initialises them and ``bin_score`` at 1. ``torch_weight_converter`` maps an
+official MagicLeap checkpoint onto this module (``norm: 'none'``). Under
+autograd (training) the attention runs K2 forward with the PyTorch
+recompute backward (``ops.attention.AttentionFn``) and the Sinkhorn
+iterations are differentiated as they run, without checkpointing, as in
+the JAX package. ``loss.nll_balancing`` is read by neither package: the NLL
+balances positives and negatives 1:1."""
 
 from __future__ import annotations
 
 from typing import ClassVar
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -152,6 +157,70 @@ class SuperGlue(BaseModel):
         losses = {"total": total, "assignment_nll": total, "nll_pos": nll_pos,
                   "nll_neg": nll_neg}
         return losses, matcher_metrics(pred, data)
+
+
+def torch_weight_converter(state_dict: dict, conf: dict | None = None) -> dict:
+    """The state_dict of a ``SuperGlue`` with ``norm: 'none'`` (load it
+    strictly) from the official MagicLeap ``superglue_{indoor,outdoor}.pth``
+    state dict, as the JAX package's converter maps it
+    (gluefactory_tpu/models/matchers/superglue.py ``torch_weight_converter``):
+
+      - the k=1 Conv1d layers become Dense layers;
+      - each BatchNorm of the MLPs folds into the conv before it, in float64:
+        W' = a W, b' = a (b - mean) + beta with a = gamma / sqrt(var + eps);
+      - the official attention views the channels as (head_dim, heads), this
+        module as (heads, head_dim): the rows of q, k and v and the columns
+        of the merge are permuted;
+      - the official model has no input projection: ``input_proj`` is the
+        identity."""
+    from ...core.config import merge
+
+    cfg = merge(SuperGlue.default_conf, conf or {})
+    d, h, n_layers = int(cfg["descriptor_dim"]), int(cfg["num_heads"]), int(cfg["n_layers"])
+    eps = 1e-5  # torch's BatchNorm1d default
+
+    def array(key, dtype=np.float32):
+        value = state_dict[key]
+        value = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else value
+        return np.asarray(value, dtype)
+
+    def conv(prefix):
+        w = array(f"{prefix}.weight")
+        return {"weight": w[..., 0] if w.ndim == 3 else w, "bias": array(f"{prefix}.bias")}
+
+    def folded(conv_prefix, bn_prefix):
+        w = array(f"{conv_prefix}.weight", np.float64)[..., 0]
+        b = array(f"{conv_prefix}.bias", np.float64)
+        gamma, beta, mean, var = (array(f"{bn_prefix}.{k}", np.float64) for k in
+                                  ("weight", "bias", "running_mean", "running_var"))
+        a = gamma / np.sqrt(var + eps)
+        return {"weight": (a[:, None] * w).astype(np.float32),
+                "bias": (a * (b - mean) + beta).astype(np.float32)}
+
+    # this module's channel c = head * hd + i is the official channel i * heads + head
+    hd = d // h
+    perm = np.asarray([i * h + head for head in range(h) for i in range(hd)])
+    layers = {"input_proj": {"weight": np.eye(d, dtype=np.float32),
+                             "bias": np.zeros(d, np.float32)},
+              "final_proj": conv("final_proj")}
+    for i in range(5):  # the keypoint encoder: 3 -> 32 -> 64 -> 128 -> 256 -> d
+        official = f"kenc.encoder.{3 * i}"
+        layers[f"kenc.encoder.dense_{i}"] = (
+            conv(official) if i == 4 else folded(official, f"kenc.encoder.{3 * i + 1}"))
+    for i in range(n_layers):
+        for kind, j in (("self", 2 * i), ("cross", 2 * i + 1)):
+            ours, theirs = f"gnn_{i}_{kind}", f"gnn.layers.{j}"
+            for name, k in (("q", 0), ("k", 1), ("v", 2)):
+                p = conv(f"{theirs}.attn.proj.{k}")
+                layers[f"{ours}.{name}"] = {"weight": p["weight"][perm], "bias": p["bias"][perm]}
+            p = conv(f"{theirs}.attn.merge")
+            layers[f"{ours}.out"] = {"weight": p["weight"][:, perm], "bias": p["bias"]}
+            layers[f"{ours}.mlp.dense_0"] = folded(f"{theirs}.mlp.0", f"{theirs}.mlp.1")
+            layers[f"{ours}.mlp.dense_1"] = conv(f"{theirs}.mlp.3")
+    state = {f"{name}.{k}": torch.from_numpy(np.ascontiguousarray(v))
+             for name, p in layers.items() for k, v in p.items()}
+    state["bin_score"] = torch.from_numpy(array("bin_score").reshape(()))
+    return state
 
 
 __main_model__ = SuperGlue

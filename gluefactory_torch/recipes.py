@@ -598,31 +598,129 @@ def hpatches_sp_nn_conf() -> dict:
     return copy.deepcopy(_HPATCHES_SP_NN)
 
 
+# --- SIFT-feature training on the cached-feature engine -----------------------------
+
+LG_SIFT_STAGE1_WEIGHTS = WEIGHTS_PATH / "lg_sift_stage1.f16.msgpack"  # LightGlue stage 1, SIFT
+
+_SIFT_CACHED_DATA = {  # the cached engine as the three cached SIFT YAMLs set it
+    "name": "homographies_ondevice_cached",
+    "pool_size": 768,
+    "val_pool_size": 64,
+    "source_size": [448, 448],
+    "image_size": 320,
+    "train_batch_size": 32,
+    "val_batch_size": 32,
+    "steps_per_epoch": 250,
+    "val_steps": 4,
+    "features_from": {"name": "extractors.sift", "max_num_keypoints": 512,
+                      "contrast_threshold": 0.02, "batch": 16, "on_host": True},
+    "desc_noise": 0.03,
+    "desc_dropout": 0.05,
+    "homography": {"difficulty": 0.7, "translation": 0.3, "max_angle": 45.0},
+}
+_SIFT_CACHED_MODEL = {
+    "name": "two_view_pipeline",
+    "extractor": {"name": None},
+    "allow_no_extract": True,
+    "matcher": {"name": "matchers.lightglue", "input_dim": 128, "filter_threshold": 0.1,
+                "n_layers": 6, "checkpointed": False},
+    "ground_truth": {"name": "matchers.homography_matcher", "th_positive": 3.0,
+                     "th_negative": 6.0},
+    "run_gt_in_forward": True,
+}
+_SIFT_CACHED_TRAIN = {
+    "epochs": 32,
+    "optimizer": "adam",
+    "lr": 1.0e-4,
+    "lr_schedule": {"type": "exp", "start": 3000, "exp_div_10": 8000},
+    "eval_every_iter": 250,
+    "save_every_iter": 2000,
+    "log_every_iter": 50,
+    "keep_last_checkpoints": 3,
+    "clip_grad": 1.0,
+    "best_key": "loss/total",
+}
+
+
+def sift_lg_cached_conf() -> dict:
+    """``sift+lightglue_cached.yaml``: LightGlue (6 layers, ``input_dim``
+    128) trained from its initialisation on the cached engine's SIFT pool
+    (512 slots, contrast 0.02, RootSIFT, extracted ``on_host``); the recipe
+    of the run ``lg_sift_stage1`` (``LG_SIFT_STAGE1_WEIGHTS``)."""
+    return {"data": copy.deepcopy(_SIFT_CACHED_DATA), "model": copy.deepcopy(_SIFT_CACHED_MODEL),
+            "train": {"seed": 3, **copy.deepcopy(_SIFT_CACHED_TRAIN)}}
+
+
+def sift_lg_stage2_conf() -> dict:
+    """``sift+lightglue_stage2.yaml``: stage 1 continued on harder
+    homographies at a decayed rate; the recipe of ``lg_sift_stage2``. Its
+    ``load_experiment``, the run ``lg_sift_stage1``, is not committed: the
+    recipe starts from that run's export, ``LG_SIFT_STAGE1_WEIGHTS``."""
+    conf = sift_lg_cached_conf()
+    conf["data"].update(desc_noise=0.02, desc_dropout=0.03,
+                        homography={"difficulty": 0.8, "translation": 0.35, "max_angle": 60.0})
+    conf["train"].update(seed=11, lr=3.0e-5, lr_schedule={"type": "exp", "start": 2000,
+                                                          "exp_div_10": 8000},
+                         load_experiment="weights/lg_sift_stage1.f16.msgpack")
+    return conf
+
+
+def sift_sg_cached_conf() -> dict:
+    """``sift+superglue_cached.yaml``: SuperGlue (9 layers, Sinkhorn 50,
+    ``input_dim`` 128) trained from its initialisation on the SIFT pool of
+    ``sift_lg_cached_conf``; the recipe of ``sg_sift_stage1``
+    (``SG_SIFT_WEIGHTS``)."""
+    conf = sift_lg_cached_conf()
+    conf["model"]["matcher"] = copy.deepcopy(_SUPERGLUE)
+    conf["train"]["seed"] = 7
+    return conf
+
+
+def sift_lightglue_conf() -> dict:
+    """``sift+lightglue.yaml``, the model card (no data, no blob): SIFT with
+    2048 keypoints and LightGlue with ``add_scale_ori``."""
+    return {"model": {"name": "two_view_pipeline",
+                      "extractor": {"name": "extractors.sift", "max_num_keypoints": 2048},
+                      "matcher": {"name": "matchers.lightglue", "input_dim": 128,
+                                  "add_scale_ori": True, "filter_threshold": 0.1,
+                                  "save_layer_outputs": False, "checkpointed": False}}}
+
+
 _GATE_SIFT = {"name": "extractors.sift", "max_num_keypoints": 1024,
               "contrast_threshold": 0.02}
 # the confs of the JAX package's quality gates (tests/test_trained_quality.py), each
 # with its blob: SIFT+SuperGlue (test_trained_sift_superglue_quality), SIFT+LightGlue
 # stage 2 (test_trained_sift_lightglue_stage2_quality) and the stage-0b SuperPoint
 # with the nearest neighbour (test_trained_superpoint_loc_finetune_quality)
+_GATE_SIFT_LG = {"name": "matchers.lightglue", "input_dim": 128, "n_layers": 6,
+                 "filter_threshold": 0.1, "checkpointed": False, "save_layer_outputs": False}
+_GATE_SP = {"name": "extractors.superpoint", "max_num_keypoints": 512,
+            "detection_threshold": 0.005, "nms_radius": 4, "refinement_radius": 2,
+            "refinement_mode": "softargmax"}
+_GATE_NN = {"name": "matchers.nearest_neighbor_matcher"}
 _GATES = {
     "sift_superglue": ({"extractor": _GATE_SIFT, "matcher": _SUPERGLUE}, SG_SIFT_WEIGHTS),
-    "sift_lightglue": ({"extractor": _GATE_SIFT,
-                        "matcher": {"name": "matchers.lightglue", "input_dim": 128,
-                                    "n_layers": 6, "filter_threshold": 0.1,
-                                    "checkpointed": False, "save_layer_outputs": False}},
-                       LG_SIFT_WEIGHTS),
-    "superpoint_nn": ({"extractor": {"name": "extractors.superpoint", "max_num_keypoints": 512,
-                                     "detection_threshold": 0.005, "nms_radius": 4,
-                                     "refinement_radius": 2, "refinement_mode": "softargmax"},
-                       "matcher": {"name": "matchers.nearest_neighbor_matcher"}},
-                      SP_STAGE0B_WEIGHTS),
+    "sift_lightglue": ({"extractor": _GATE_SIFT, "matcher": _GATE_SIFT_LG}, LG_SIFT_WEIGHTS),
+    "superpoint_nn": ({"extractor": _GATE_SP, "matcher": _GATE_NN}, SP_STAGE0B_WEIGHTS),
+    # test_trained_sift_lightglue_quality (:284), test_trained_sift_lightglue_stage2_ood_quality
+    # (:477, family B) and test_trained_superpoint_nn_quality (:138, no sub-pixel readout)
+    "sift_lightglue_stage1": ({"extractor": _GATE_SIFT, "matcher": _GATE_SIFT_LG},
+                              LG_SIFT_STAGE1_WEIGHTS),
+    "sift_lightglue_ood": ({"extractor": _GATE_SIFT, "matcher": _GATE_SIFT_LG}, LG_SIFT_WEIGHTS),
+    "superpoint_nn_stage0": ({"extractor": {**_GATE_SP, "refinement_radius": 0},
+                              "matcher": _GATE_NN}, SP_STAGE0_WEIGHTS),
 }
+# the family of each gate's rendered pairs (render_pairs of tests/test_trained_quality.py)
+GATE_FAMILY = {name: "b" if name == "sift_lightglue_ood" else "a" for name in _GATES}
 # their bounds on the medians over the gate's 6 pairs: matches and precisions above,
 # the corner error (px) below
 GATE_BOUNDS = {
     "sift_superglue": {"matches": 60, "prec3": 0.6, "h_err": 1.5},
     "sift_lightglue": {"matches": 60, "prec1": 0.55, "prec3": 0.7, "h_err": 1.0},
     "superpoint_nn": {"matches": 80, "prec1": 0.12, "prec3": 0.4, "h_err": 3.0},
+    "sift_lightglue_stage1": {"matches": 60, "prec1": 0.5, "prec3": 0.65, "h_err": 1.0},
+    "sift_lightglue_ood": {"matches": 60, "prec1": 0.5, "prec3": 0.7, "h_err": 1.5},
+    "superpoint_nn_stage0": {"matches": 80, "prec3": 0.4, "h_err": 5.0},
 }
 
 

@@ -350,7 +350,7 @@ def flat_from_params(state: dict, num_heads: dict[str, int] | None = None) -> di
             arr = arr[np.argsort(_qkv_rows(arr.shape[0] // 3, heads))]
         if path[-1] == "kernel":
             arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
-        flat[key] = np.ascontiguousarray(arr)
+        flat[key] = np.asarray(arr, order="C")  # 0-d stays 0-d (SuperGlue's bin_score)
     return flat
 
 

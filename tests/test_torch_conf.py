@@ -117,12 +117,33 @@ def test_recipes_still_build():
     ("matchers.superglue", {"norm": "none", "input_dim": 128}),
     ("matchers.nearest_neighbor_matcher", {"ratio_thresh": 0.8, "mutual_check": False}),
     ("extractors.sift", {"contrast_threshold": 0.02, "rootsift": False}),
+    ("matchers.lightglue", {"add_scale_ori": True, "input_dim": 128}),
 ])
 def test_ported_switches_build(name, conf):
     """The keys this slice ported left ``unported_conf`` and build."""
     model = build_model(name, conf, device="cpu")
     for key, value in _leaves(conf).items():
         assert _leaves(model.conf)[key] == value
+
+
+def test_cached_engine_on_host_builds_and_weights_refuse_off_it(tmp_path, monkeypatch):
+    """``features_from.on_host`` (the cached SIFT recipes) extracts its pool,
+    with SIFT's scales and orientations; ``features_from.weights`` is read
+    on_host (tests/test_torch_sift_train.py) and refused by the extractor
+    off it, as SuperPoint refuses its unported ``weights`` key."""
+    from gluefactory_torch import settings
+    from gluefactory_torch.datasets import get_dataset
+    from gluefactory_torch.recipes import sift_sg_cached_conf
+
+    monkeypatch.setattr(settings, "DATA_PATH", tmp_path)
+    conf = {**sift_sg_cached_conf()["data"], "pool_size": 2, "source_size": [96, 96],
+            "pool_cache": False}
+    pool = get_dataset(conf["name"])(conf).build_pool("train", "cpu")
+    assert {"scales", "oris"} <= set(pool) and pool["descriptors"].shape == (2, 512, 128)
+    conf["features_from"] = {"name": "extractors.superpoint", "max_num_keypoints": 16,
+                             "weights": "sp_tpu_stage0b.f16.msgpack"}
+    with pytest.raises(NotImplementedError, match="weights"):
+        get_dataset(conf["name"])(conf).build_pool("train", "cpu")
 
 
 def test_trainer_refuses_run_benchmarks():

@@ -136,6 +136,37 @@ def test_lightglue_matches_jax(attention):
         np.testing.assert_allclose(pred[key].numpy(), np.asarray(jpred[key]), atol=1e-5)
 
 
+@pytest.mark.parametrize("with_scale_ori", [True, False])
+def test_lightglue_scale_ori_matches_jax(with_scale_ori):
+    """``add_scale_ori``: posenc reads [x, y, scale, orientation], zeros where
+    the data carry no ``scales*``/``oris*`` (the cached engine's batches)."""
+    conf = {k: v for k, v in _tiny_conf()["matcher"].items() if k != "flash"}
+    conf.update(add_scale_ori=True, attention="xla")
+    rng = np.random.default_rng(2)
+    data = _lightglue_inputs(rng)
+    if with_scale_ori:
+        for i, n in (("0", 24), ("1", 20)):
+            data[f"scales{i}"] = rng.uniform(1, 12, (2, n)).astype(np.float32)
+            data[f"oris{i}"] = rng.uniform(-np.pi, np.pi, (2, n)).astype(np.float32)
+    jdata = jax.tree.map(jnp.asarray, data)
+    jmodel = jax_build_model("matchers.lightglue", conf)
+    params = jmodel.init(jax.random.key(3), jdata)
+    jpred = jmodel.apply(params, jdata)
+    model = _port("matchers.lightglue", conf, params, heads={"": conf["num_heads"]})
+    assert model.posenc.Wr.weight.shape[1] == 4
+    with torch.inference_mode():
+        pred = model(jax.tree.map(torch.from_numpy, data))
+    scores, jscores = pred["log_assignment"].numpy(), np.asarray(jpred["log_assignment"])
+    finite = jscores > -1e29
+    np.testing.assert_allclose(scores[finite], jscores[finite], atol=1e-4)
+    np.testing.assert_array_equal(pred["matches0"].numpy(), np.asarray(jpred["matches0"]))
+    # a blob of the 2-input posenc does not load into it
+    flat = {k: v for k, v in state_to_flat_dict(params).items()}
+    flat["['params']['posenc']['kernel']"] = np.asarray(flat["['params']['posenc']['kernel']"])[:2]
+    with pytest.raises(ValueError, match="posenc"):
+        load_state_strict(model, params_from_flat(flat, {"": conf["num_heads"]}))
+
+
 def _texture(h, w, rng):
     yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     img = np.zeros((h, w))
@@ -231,8 +262,8 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
 
 
 def test_unported_options_raise():
-    # adaptive depth and width are ported (tests/test_torch_adaptive.py); add_scale_ori is not
-    with pytest.raises(NotImplementedError):
-        build_model("matchers.lightglue", {"add_scale_ori": True}, device="cpu")
+    # adaptive depth and width (tests/test_torch_adaptive.py) and add_scale_ori
+    # (test_lightglue_scale_ori_matches_jax) are ported
+    build_model("matchers.lightglue", {"add_scale_ori": True}, device="cpu")
     with pytest.raises(NotImplementedError):
         build_model("matchers.match_refiner", {"window_sampling": "static"}, device="cpu")

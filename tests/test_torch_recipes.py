@@ -43,6 +43,32 @@ def test_recipe_is_its_yaml(recipe):
     assert R.SP_STAGE1C_WEIGHTS.exists()  # stage 3's features
 
 
+# the SIFT recipes -> their YAML; sift_lg_stage2_conf starts from the export of the
+# run its YAML names (lg_sift_stage1), which is not committed
+SIFT_RECIPES = {"sift_lg_cached_conf": "sift+lightglue_cached",
+                "sift_lg_stage2_conf": "sift+lightglue_stage2",
+                "sift_sg_cached_conf": "sift+superglue_cached",
+                "sift_lightglue_conf": "sift+lightglue"}
+
+
+@pytest.mark.parametrize("recipe", sorted(SIFT_RECIPES))
+def test_sift_recipe_is_its_yaml(recipe):
+    path = ROOT_PATH / "gluefactory_tpu/configs" / f"{SIFT_RECIPES[recipe]}.yaml"
+    conf, yaml_conf = getattr(R, recipe)(), yaml.safe_load(path.read_text())
+    if recipe == "sift_lg_stage2_conf":
+        assert yaml_conf["train"]["load_experiment"] == "lg_sift_stage1"
+        assert conf["train"]["load_experiment"] == "weights/lg_sift_stage1.f16.msgpack"
+        assert (ROOT_PATH / conf["train"]["load_experiment"]).exists()
+        yaml_conf["train"]["load_experiment"] = conf["train"]["load_experiment"]
+    assert conf == yaml_conf
+    model = build_model("two_view_pipeline", conf["model"], device="cpu")
+    if recipe == "sift_lg_stage2_conf":
+        restore_components(model, conf["train"]["load_experiment"])
+        expected = _blob_state(R.LG_SIFT_STAGE1_WEIGHTS, "matcher")
+        for name, value in model.state_dict().items():
+            assert torch.equal(value, expected[name]), name
+
+
 def _blob_state(path, scope):
     flat, _, _ = load_weight_blob(path)
     return params_from_flat({k: v for k, v in flat.items() if f"['{scope}']" in k},

@@ -133,6 +133,40 @@ def test_superglue_matches_jax_with_flax_init(norm, attention):
                                atol=SCORE_ATOL, rtol=0)
 
 
+def test_torch_weight_converter_matches_jax():
+    """The port's converter of an official checkpoint (a random state dict of
+    its layout, BatchNorms with non-trivial statistics) against the JAX
+    package's: the same parameters, and the same forward with ``norm:
+    'none'`` within 1e-5."""
+    from gluefactory_torch.models.matchers.superglue import torch_weight_converter
+    from gluefactory_tpu.models.matchers.superglue import (
+        torch_weight_converter as jax_torch_weight_converter,
+    )
+    from test_weight_converters import _rand_state_superglue
+
+    torch.manual_seed(0)
+    official = _rand_state_superglue(d=64, h=4, L=2)
+    conf = {"input_dim": 64, "descriptor_dim": 64, "num_heads": 4, "n_layers": 2,
+            "sinkhorn_iterations": 20, "filter_threshold": 0.0, "norm": "none"}
+    jparams = jax.tree.map(jnp.asarray, jax_torch_weight_converter(official, conf))
+    state = torch_weight_converter(official, conf)
+    expected = params_from_flat(state_to_flat_dict(jparams))
+    assert state.keys() == expected.keys()
+    for name, value in expected.items():
+        assert state[name].dtype == value.dtype and torch.equal(state[name], value), name
+    model = build_model("matchers.superglue", conf, device="cpu")
+    load_state_strict(model, state)
+    data = _matcher_data(5, d=64)
+    jpred = jax.tree.map(np.asarray, dict(jax_build_model("matchers.superglue", conf).apply(
+        jparams, jax.tree.map(jnp.asarray, data))))
+    with torch.inference_mode():
+        tpred = {k: v.numpy() for k, v in model(jax.tree.map(torch.from_numpy, data)).items()}
+    o, r = (_valid_region(x, data["keypoint_valid0"], data["keypoint_valid1"])
+            for x in (tpred["log_assignment"], jpred["log_assignment"]))
+    np.testing.assert_allclose(o, r, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(tpred["matches0"], jpred["matches0"])
+
+
 @pytest.fixture(scope="module")
 def gate_pair(tmp_path_factory):
     """The JAX gate's first pair (sequence (424242, 0), views 1 and 2),
@@ -210,6 +244,44 @@ def test_sift_superglue_end_to_end(gate_pair):
     # each of JAX's matches among the port's, both keypoints within 0.05 px
     found = (np.abs(ref[:, None] - ours[None]).max(-1) < 0.05).any(1)
     assert len(ref) > 60 and abs(len(ours) - len(ref)) <= 0.02 * len(ref), (len(ours), len(ref))
+    assert found.mean() >= END_TO_END_SHARE, found.mean()
+
+
+def test_sift_lightglue_model_card_end_to_end(gate_pair):
+    """``sift+lightglue.yaml`` (SIFT with 2048 slots, LightGlue with
+    ``add_scale_ori``) cut to 2 layers from the JAX initialisation, every
+    mutual match kept, on one gate pair against the JAX pipeline: the same keypoint counts, and JAX's
+    matched keypoint pairs among the port's (END_TO_END_SHARE; slots of
+    keypoints that tie in response may be ordered either way, which the
+    matcher does not see)."""
+    from gluefactory_torch.recipes import sift_lightglue_conf
+
+    conf = sift_lightglue_conf()["model"]
+    conf["matcher"].update(n_layers=2, attention="xla", filter_threshold=0.0)  # untrained
+    img0, img1, _ = gate_pair
+    size = np.float32([[480.0, 360.0]])
+    data = {"view0": {"image": img0[None], "image_size": size},
+            "view1": {"image": img1[None], "image_size": size}}
+    jdata = jax.tree.map(jnp.asarray, data)
+    jmodel = jax_build_model("two_view_pipeline", conf)
+    params = jmodel.init(jax.random.key(0), jdata)
+    jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
+    model = build_model("two_view_pipeline", conf, device="cpu")
+    load_state_strict(model, params_from_flat(state_to_flat_dict(params), {"matcher": 4}))
+    assert model.matcher.posenc.Wr.weight.shape == (32, 4)
+    with torch.inference_mode():
+        tpred = {k: v.numpy() for k, v in model(jax.tree.map(torch.from_numpy, data)).items()}
+    for i in "01":
+        assert tpred[f"keypoint_valid{i}"].sum() == jpred[f"keypoint_valid{i}"].sum() > 100
+
+    def pairs(pred):
+        m0 = pred["matches0"][0]
+        idx = np.nonzero(m0 > -1)[0]
+        return np.concatenate([pred["keypoints0"][0][idx], pred["keypoints1"][0][m0[idx]]], 1)
+
+    ours, ref = pairs(tpred), pairs(jpred)
+    found = (np.abs(ref[:, None] - ours[None]).max(-1) < 0.05).any(1)
+    assert len(ref) > 20 and abs(len(ours) - len(ref)) <= 0.02 * len(ref), (len(ours), len(ref))
     assert found.mean() >= END_TO_END_SHARE, found.mean()
 
 

@@ -10,7 +10,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
 RUNTIME_FILES = ["chip_smoke.py", "weights/lg_tpu_stage2.f16.msgpack",
                  "weights/lg5_init_spsoft.f16.msgpack", "weights/sp_tpu_stage0b.f16.msgpack",
-                 "weights/sg_sift_stage1.f16.msgpack", "weights/lg_sift_stage2.f16.msgpack"]
+                 "weights/sg_sift_stage1.f16.msgpack", "weights/lg_sift_stage2.f16.msgpack",
+                 "weights/lg_sift_stage1.f16.msgpack", "weights/sp_tpu_stage0.f16.msgpack"]
 
 
 def _git(*args: str) -> subprocess.CompletedProcess:

@@ -95,7 +95,20 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      Sinkhorn's share of a SuperGlue step; (d) sg_sift_stage1 and lg_sift_stage2
      validated on the port's val pool against the JAX package's on its own; (e)
      the JAX gates of lg_sift_stage1, lg_sift_stage2 out of distribution and
-     SuperPoint stage 0 + NN, and the sift+lightglue model card (add_scale_ori).
+     SuperPoint stage 0 + NN, and the sift+lightglue model card (add_scale_ori);
+ 17. ETH3D and the rest of the filter slot (see check_eth3d): (a) the ETH3D set
+     rendered by the port (6 scenes x 6 views, 1500 points), eval.eth3d.ETH3DPipeline
+     with recipes.eth3d_flagship_conf and eth3d_sp_lg_stage2_conf over its 48 pairs at
+     1024 keypoints on the 1024-pixel canvas, AP and mnum_matches held to the JAX
+     package's on the same set, 12 + 12 launches a pair, kernel path against plain
+     path and the time by stage on 8 pairs; (b) the refiner's static mode against
+     its window mode on those pairs' matches, both timed; (c) SIFT+NN+AdaLAM
+     (recipes.hpatches_sift_nn_adalam_conf) on famA's first 8 sequences against
+     JAX's over seeds 0-4, AdaLAM on the card against the CPU on one pair; (d)
+     SuperPoint exported by scripts/export_features over one scene, LightGlue with
+     allow_no_extract from the cache against the full pipeline; (e) depth ground
+     truth (gt_matches_from_pose_depth, depth_matcher, oracle_matcher) on the card
+     against the CPU; (f) eval.timing_measurement of the flagship at batch 1 and 8.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
@@ -1274,12 +1287,13 @@ def pose_against_cpu(pipeline, pred_file: Path, th: float, device) -> dict:
 
     from gluefactory_torch.eval.eval_pipeline import unbatch
     from gluefactory_torch.eval.utils import get_matches_scores
+    from gluefactory_torch.models.cache_loader import CacheLoader
     from gluefactory_torch.robust_estimators import load_estimator
     from gluefactory_torch.robust_estimators.homography.ransac import sample_minimal_sets
     from gluefactory_torch.robust_estimators.relative_pose.ransac import ransac_essential
 
     batch = next(iter(pipeline.get_dataloader()))
-    data, pred = unbatch(batch), pipeline.load_predictions(pred_file)(batch)
+    data, pred = unbatch(batch), CacheLoader({"path": str(pred_file)})(batch)
     pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
                                               pred["matches0"], pred["matching_scores0"])
     conf = {**pipeline.conf["eval"], "ransac_th": th}
@@ -2718,6 +2732,512 @@ def _check_sift_training(device, root: Path) -> tuple[dict, dict]:
     return launches, report
 
 
+# --- phase 17: ETH3D, the refiner's modes, AdaLAM, the feature cache, depth ground truth ---
+
+ETH3D_SET = {"num_scenes": 6, "views": 6, "points": 1500, "seed": 271828}  # the renderer's defaults
+# The JAX package's summaries of each recipe on the same port-rendered set, on the CPU:
+# JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_eth3d.py --set <the set of
+# python -m gluefactory_torch.scripts.generate_eth3d_set> --out /tmp/x (48 pairs each)
+ETH3D_JAX = {
+    "eth3d_flagship_conf": {"AP": 73.43, "mnum_matches": 390.0416666666667},
+    "eth3d_sp_lg_stage2_conf": {"AP": 41.0, "mnum_matches": 398.9166666666667},
+}
+# the committed JAX results (outputs/results/eth3d/*/summaries.json), on JAX's cv2-rendered
+# set: printed for information only
+ETH3D_COMMITTED = {"eth3d_flagship_conf": ("sp_lg2_com_refine", 72.97, 393.5625),
+                   "eth3d_sp_lg_stage2_conf": ("sp_lg_stage2", 41.13, 403.3541666666667)}
+ETH3D_TOLERANCES = {"AP": 1.0, "mnum_matches": 0.02}  # AP points; relative match count
+ETH3D_CHECK_PAIRS = 8  # (a) kernel path against plain path, (b) static against window
+ETH3D_AGREE = 0.99  # (a) share of matches0 the two paths agree on, each pair
+# (b) |static - window| of the refined keypoints: the two formulations sample different
+# images at the affinely mapped patch, so where the ZNCC surface is ambiguous or one
+# mode's peak misses the gate they part by pixels. On the CPU, the flagship's matches of
+# the same 8 pairs at full width (1969 refined keypoints) refined by both packages
+# (JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_refiner_modes.py --set <the set
+# of python -m gluefactory_torch.scripts.generate_eth3d_set>): the port's static mode
+# refines the same matches as JAX's and lies within 1e-3 px of it on 99.14% of them,
+# within 0.0136 px on all (window mode against JAX's window: 99.09%, 0.0493 px); JAX's own
+# static against window spread is the port's to the fourth digit.
+# The card is held to that spread: the share within 0.05 px no more than 3 points below
+# JAX's, the median within 0.05 px
+REFINER_CPU = {"within_0.05px": 0.7359, "median_px": 0.0167, "p99_px": 2.2526, "max_px": 8.0470}
+REFINER_JAX_CPU = {"within_0.05px": 0.7364, "median_px": 0.0168, "p99_px": 2.2526,
+                   "max_px": 8.0470}
+REFINER_BOUND = {"within_0.05px": 0.7064, "median_px": 0.05}
+# (c) the JAX package's sift_nn_adalam on famA's first 8 sequences (40 pairs), seeds 0-4
+# setting both AdaLAM's stream and RANSAC's (JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_adalam.py --set <famA of phase 8>): mAA, and the mean adalam_kept
+ADALAM_SEQS = 8
+ADALAM_JAX_MAA = [58.684, 59.321, 58.088, 59.058, 60.082]
+ADALAM_JAX_KEPT = [76.35, 76.425, 76.425, 76.5, 76.525]
+ADALAM_MAA_TOL = 1.5  # points beyond the range of JAX's seeds
+ADALAM_KEPT_TOL = 0.03  # relative, against seed 0's
+CACHE_AGREE = 0.99  # (d) cached matcher against the full pipeline, matches0, each pair
+DEPTH_PX = 1e-4  # (e) reprojections, card against CPU
+DEPTH_AGREE = 0.999  # (e) share of matches0 slots equal, card against CPU
+DEPTH_SCENE = {"batch": 4, "size": (640, 480), "keypoints": 1024}
+TIMING = {"batches": (1, 8), "size": 512, "iters": 10}  # (f), JAX's --size
+
+
+def render_eth3d_set(root: Path) -> float:
+    """Render ETH3D_SET under ``root`` in worker processes (numpy, no
+    device); returns the seconds it took."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gluefactory_torch.scripts.generate_eth3d_set import render_scene_job
+
+    t = time.perf_counter()
+    context = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(RENDER_WORKERS, mp_context=context) as pool:
+        jobs = [pool.submit(render_scene_job, root, ETH3D_SET["seed"], s, ETH3D_SET["views"],
+                            ETH3D_SET["points"]) for s in range(ETH3D_SET["num_scenes"])]
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t
+
+
+def _batches(dataset, n: int):
+    for i, batch in enumerate(dataset.get_data_loader("test")):
+        if i == n:
+            break
+        yield batch
+
+
+def to_device(tree, device):
+    """The tensors of a nested dict on ``device`` (other values dropped)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()
+                if isinstance(v, (dict, torch.Tensor))}
+    return tree.to(device)
+
+
+def matched_before_filter(model, data: dict) -> dict:
+    """The pipeline's predictions up to its filter slot (extractor and
+    matcher), merged with ``data``: the refiner's input."""
+    pred = {}
+    for i in ("0", "1"):
+        pred.update({k + i: v for k, v in model.extract_view(data, i).items()})
+    pred.update(model.matcher({**data, **pred}))
+    return {**data, **pred}
+
+
+def check_eth3d_benchmark(device, root: Path) -> tuple[dict, dict]:
+    """(a) ``ETH3DPipeline`` with both recipes on the rendered set, every pair
+    at full width through the kernels: 12 + 12 launches a pair, AP and
+    mnum_matches within ETH3D_TOLERANCES of the JAX package's on the same
+    set; the flagship's kernel path against its plain path on the first
+    ETH3D_CHECK_PAIRS pairs and its time by stage. Returns (launches, report)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch import recipes
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.eval.eth3d import ETH3DPipeline
+    from gluefactory_torch.eval.eval_pipeline import to_model_input
+    from gluefactory_torch.eval.io import load_model
+    from gluefactory_torch.ops import attention as A
+
+    launches = {"attention_rotary": 0, "attention": 0}
+    report, failures = {}, []
+    for recipe, ref in ETH3D_JAX.items():
+        conf = merge(getattr(recipes, recipe)(), {"data": {"data_dir": str(root / "set")}})
+        pipeline = ETH3DPipeline(conf, device=device)
+        n_pairs = len(pipeline.dataset)
+        model = load_model(conf["model"], conf["checkpoint"], device)
+        A.reset_launches()
+        t = time.perf_counter()
+        summaries, _ = pipeline.run(root / f"eval_{recipe}", model=model, overwrite=True)
+        seconds = time.perf_counter() - t
+        counts = dict(A.launches)
+        if counts != {"attention_rotary": 12 * n_pairs, "attention": 12 * n_pairs}:
+            raise AssertionError(f"eth3d {recipe}: launches {counts} for {n_pairs} pairs, "
+                                 "expected 12 and 12 a pair")
+        for key in launches:
+            launches[key] += counts[key]
+        forward = float(np.median(pipeline.timings["forward_ms"]))
+        report[recipe] = {"pairs": n_pairs, "seconds": seconds, "median_forward_ms": forward,
+                          "summaries": summaries}
+        folder, ap, matches = ETH3D_COMMITTED[recipe]
+        log(f"  (a) {recipe}: {n_pairs} pairs in {seconds:.1f} s ({n_pairs / seconds:.2f} "
+            f"pairs/s), median forward {forward:.1f} ms a pair (1024 keypoints, 1024-pixel "
+            f"canvas); launches {counts}; summaries {json.dumps(summaries)} (the committed "
+            f"{folder}, on JAX's cv2-rendered set: AP {ap}, mnum_matches {matches:.2f})")
+        for key, value in ref.items():
+            tol = ETH3D_TOLERANCES[key] * (abs(value) if key == "mnum_matches" else 1.0)
+            port = float(summaries[key])
+            ok = abs(port - value) <= tol
+            log(f"  {recipe} {key}: port {port:.3f}, JAX {value:.3f} on the same set, "
+                f"difference {port - value:+.3f} (tolerance {tol:.3f}) "
+                f"{'ok' if ok else 'FAILS'}")
+            if not ok:
+                failures.append(f"{recipe} {key}: {port} against {value}")
+
+    conf = merge(recipes.eth3d_flagship_conf(), {"data": {"data_dir": str(root / "set")}})
+    model = load_model(conf["model"], conf["checkpoint"], device)
+    plain = load_model(merge(conf["model"], {"matcher": {"attention": "xla"}}),
+                       conf["checkpoint"], device)
+    dataset = ETH3DPipeline(conf, device=device).dataset
+    agree = []
+    for batch in _batches(dataset, ETH3D_CHECK_PAIRS):
+        data = to_model_input(batch, device)
+        with torch.inference_mode():
+            m0, pm0 = model(data)["matches0"], plain(data)["matches0"]
+        agree.append(float((m0 == pm0).float().mean()))
+    log(f"  (a) kernel path against plain path on the first {ETH3D_CHECK_PAIRS} pairs: "
+        f"matches0 agree {min(agree):.4f} at worst (bound {ETH3D_AGREE})")
+    if min(agree) < ETH3D_AGREE:
+        failures.append(f"kernel against plain path: {agree}")
+    report["agree"] = agree
+    report["stages"] = time_stages(model, dataset, device, ETH3D_CHECK_PAIRS)
+    s = report["stages"]
+    log(f"  (a) the flagship's first {ETH3D_CHECK_PAIRS} pairs, each stage synchronised: "
+        f"median {s['extractor_ms']:.1f} ms SuperPoint (both views), {s['matcher_ms']:.1f} ms "
+        f"LightGlue, {s['refiner_ms']:.1f} ms refiner")
+    if failures:
+        raise AssertionError(f"ETH3D against the JAX package: {failures}")
+    return launches, report
+
+
+def check_refiner_modes(device, root: Path) -> tuple[dict, dict]:
+    """(b) the flagship's refiner in static mode against window mode on the
+    same matches of the first ETH3D_CHECK_PAIRS pairs: their distance held to
+    REFINER_BOUND (set from the CPU's spread), both timed. Returns (launches,
+    report)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch import recipes
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.eval.eth3d import ETH3DPipeline
+    from gluefactory_torch.eval.eval_pipeline import to_model_input
+    from gluefactory_torch.eval.io import load_model
+    from gluefactory_torch.models import build_model
+    from gluefactory_torch.ops import attention as A
+
+    conf = merge(recipes.eth3d_flagship_conf(), {"data": {"data_dir": str(root / "set")}})
+    model = load_model(conf["model"], conf["checkpoint"], device)
+    refiners = {mode: build_model("matchers.match_refiner", {"window_sampling": mode},
+                                  device=device) for mode in ("static", True)}
+    dataset = ETH3DPipeline(conf, device=device).dataset
+    ms = {"static": [], "window": []}
+    gaps, refined = [], 0
+    A.reset_launches()
+    for batch in _batches(dataset, ETH3D_CHECK_PAIRS):
+        with torch.inference_mode():
+            data = matched_before_filter(model, to_model_input(batch, device))
+            out = {}
+            for mode, refiner in refiners.items():
+                name = "static" if mode == "static" else "window"
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                out[name] = refiner(data)
+                torch.cuda.synchronize(device)
+                ms[name].append((time.perf_counter() - t) * 1e3)
+        moved = out["window"]["refined1"][0]
+        m0 = data["matches0"][0][moved].long()
+        gap = (out["static"]["keypoints1"][0][m0] - out["window"]["keypoints1"][0][m0]).norm(dim=-1)
+        gaps.append(gap.cpu().numpy())
+        refined += int(moved.sum())
+    counts = dict(A.launches)
+    gaps = np.concatenate(gaps)
+    report = {"static_ms": float(np.median(ms["static"])),
+              "window_ms": float(np.median(ms["window"])), "refined": refined,
+              "within_0.05px": float((gaps <= 0.05).mean()), "median_px": float(np.median(gaps)),
+              "p99_px": float(np.quantile(gaps, 0.99)), "max_px": float(gaps.max())}
+    log(f"  (b) refiner on the flagship's matches of {ETH3D_CHECK_PAIRS} pairs ({refined} "
+        f"refined): static {report['static_ms']:.1f} ms, window {report['window_ms']:.1f} ms "
+        f"a pair (median); |static - window|: {report['within_0.05px']:.4f} within 0.05 px, "
+        f"median {report['median_px']:.4f}, 99% {report['p99_px']:.4f}, max "
+        f"{report['max_px']:.4f} px (on the CPU the port's {json.dumps(REFINER_CPU)}, JAX's "
+        f"{json.dumps(REFINER_JAX_CPU)}; bounds "
+        f"{json.dumps(REFINER_BOUND)}); launches {counts}")
+    if not (report["within_0.05px"] >= REFINER_BOUND["within_0.05px"]
+            and report["median_px"] <= REFINER_BOUND["median_px"]):
+        raise AssertionError(f"static against window refiner: {report}")
+    return counts, report
+
+
+def check_adalam(device, hpatches_root: Path) -> dict:
+    """(c) ``HPatchesPipeline`` with ``recipes.hpatches_sift_nn_adalam_conf`` on
+    famA's first ADALAM_SEQS sequences: the mAA within ADALAM_MAA_TOL of the
+    range of the JAX package's over seeds 0-4, the mean adalam_kept within
+    ADALAM_KEPT_TOL of seed 0's; pair 0's AdaLAM on the card against the CPU
+    on the same matches and draws."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch import recipes
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.eval.eval_pipeline import to_model_input
+    from gluefactory_torch.eval.hpatches import HPatchesPipeline
+    from gluefactory_torch.eval.io import load_model
+
+    conf = merge(recipes.hpatches_sift_nn_adalam_conf(),
+                 {"data": {"data_dir": str(hpatches_root / "famA"), "max_seqs": ADALAM_SEQS}})
+    pipeline = HPatchesPipeline(conf, device=device)
+    model = load_model(conf["model"], conf["checkpoint"], device)
+    out = hpatches_root / "eval_sift_nn_adalam"
+    t = time.perf_counter()
+    summaries, _ = pipeline.run(out, model=model, overwrite=True)
+    seconds = time.perf_counter() - t
+    with np.load(out / "predictions.npz") as f:
+        kept = (f["matches0"] > -1).sum(-1)  # every kept match is one of matches0
+    batch = next(iter(pipeline.get_dataloader()))
+    with torch.inference_mode():
+        data = matched_before_filter(model, to_model_input(batch, device))
+        card = model.filter(data)
+        cpu = model.filter(to_device(data, torch.device("cpu")))
+    report = {"pairs": len(pipeline.dataset), "seconds": seconds,
+              "median_forward_ms": float(np.median(pipeline.timings["forward_ms"])),
+              "mean_adalam_kept": float(kept.mean()), "summaries": summaries,
+              "pair0_kept": int(card["adalam_kept"][0]),
+              "pair0_equal": bool(torch.equal(card["matches0"].cpu(), cpu["matches0"]))}
+    maa = float(summaries["H_error_ransac_mAA"])
+    lo, hi = min(ADALAM_JAX_MAA), max(ADALAM_JAX_MAA)
+    kept_tol = ADALAM_KEPT_TOL * ADALAM_JAX_KEPT[0]
+    log(f"  (c) sift_nn_adalam on famA's first {ADALAM_SEQS} sequences: {report['pairs']} pairs "
+        f"in {seconds:.1f} s, median pair latency {report['median_forward_ms']:.1f} ms; "
+        f"summaries {json.dumps(summaries)}")
+    log(f"  (c) mAA {maa:.3f} against JAX's {lo:.3f} to {hi:.3f} over seeds 0-4 (tolerance "
+        f"{ADALAM_MAA_TOL} beyond); mean adalam_kept {report['mean_adalam_kept']:.3f} against "
+        f"JAX's {ADALAM_JAX_KEPT[0]:.3f} (tolerance {kept_tol:.3f}; seeds 0-4 "
+        f"{min(ADALAM_JAX_KEPT):.3f} to {max(ADALAM_JAX_KEPT):.3f}); pair 0 on the card "
+        f"against the CPU (same matches and draws): matches0 equal {report['pair0_equal']}, "
+        f"{report['pair0_kept']} kept")
+    failures = []
+    if not lo - ADALAM_MAA_TOL <= maa <= hi + ADALAM_MAA_TOL:
+        failures.append(f"mAA {maa}")
+    if not abs(report["mean_adalam_kept"] - ADALAM_JAX_KEPT[0]) <= kept_tol:
+        failures.append(f"mean adalam_kept {report['mean_adalam_kept']}")
+    if report["pair0_kept"] != int(kept[0]) or not report["pair0_equal"]:
+        failures.append(f"pair 0: {report}")
+    if failures:
+        raise AssertionError(f"AdaLAM: {failures}")
+    return report
+
+
+def check_feature_cache(device, root: Path) -> tuple[dict, dict]:
+    """(d) SuperPoint (sp_tpu_stage0b, 1024 keypoints, CoM) exported with
+    ``export_features`` over scene000's views on the card, then the
+    flagship's LightGlue with ``allow_no_extract`` from that cache on the
+    scene's ETH3D pairs, against the full pipeline: matches0 agree on at
+    least CACHE_AGREE of the slots of each pair. Returns (launches, report)."""
+    import numpy as np
+    import torch
+
+    from gluefactory_torch import recipes
+    from gluefactory_torch.core.config import merge
+    from gluefactory_torch.datasets.base_dataset import collate
+    from gluefactory_torch.datasets.image_folder import ImageFolderDataset
+    from gluefactory_torch.eval.eth3d import ETH3DPipeline
+    from gluefactory_torch.eval.eval_pipeline import to_model_input
+    from gluefactory_torch.eval.io import load_model
+    from gluefactory_torch.models.cache_loader import CacheLoader
+    from gluefactory_torch.ops import attention as A
+    from gluefactory_torch.scripts.export_features import export_features, view_cache
+    from gluefactory_torch.scripts.extract_pool_features import build_extractor
+
+    conf = merge(recipes.eth3d_flagship_conf(), {"data": {"data_dir": str(root / "set")}})
+    dataset = ETH3DPipeline(conf, device=device).dataset
+    folder = ImageFolderDataset({"images": str(root / "set" / "scene000" / "images"),
+                                 "preprocessing": dataset.conf["preprocessing"]})
+    sp = build_extractor("extractors.superpoint", conf["model"]["extractor"], device,
+                         weights=recipes.SP_STAGE0B_WEIGHTS)
+    t = time.perf_counter()
+    out = export_features(folder, sp, root / "sp_scene000.npz", device=device)
+    export_s = time.perf_counter() - t
+    full = load_model(conf["model"], conf["checkpoint"], device)
+    cached = load_model({**conf["model"], "allow_no_extract": True}, conf["checkpoint"], device)
+    loader = CacheLoader({"path": str(out)})
+    agree, matches = [], []
+    A.reset_launches()
+    for i, (scene, _, names, a, b) in enumerate(dataset.items):
+        if scene != "scene000":
+            continue
+        batch = collate([dataset[i]])
+        data = to_model_input(batch, device)
+        for j, im in zip("01", (a, b)):
+            data[f"view{j}"]["cache"] = view_cache(loader, names[im]["name"],
+                                                   batch[f"view{j}"]["scales"][0], device)
+        with torch.inference_mode():
+            m_full = full(data)["matches0"]
+            m_cached = cached(data)["matches0"]
+        agree.append(float((m_full == m_cached).float().mean()))
+        matches.append(int((m_full > -1).sum()))
+    counts = dict(A.launches)
+    report = {"export_s": export_s, "images": len(folder), "pairs": len(agree),
+              "agree": agree, "matches": matches}
+    log(f"  (d) SuperPoint exported over scene000's {len(folder)} views in {export_s:.1f} s; "
+        f"the cached matcher against the full pipeline on its {len(agree)} pairs: matches0 "
+        f"agree {min(agree):.4f} at worst (bound {CACHE_AGREE}), {np.mean(matches):.1f} "
+        f"matches a pair; launches {counts}")
+    if not agree or min(agree) < CACHE_AGREE:
+        raise AssertionError(f"cached matcher against the full pipeline: {report}")
+    return counts, report
+
+
+def planar_depth_scene(seed: int) -> dict:
+    """DEPTH_SCENE's pairs of views of one slanted plane each (depth maps with
+    holes of no depth, pinhole cameras, the pose, keypoints of view 0 and
+    their noisy partners in view 1, a fifth of them random, shuffled), as
+    numpy float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (w, h), n, b = DEPTH_SCENE["size"], DEPTH_SCENE["keypoints"], DEPTH_SCENE["batch"]
+    f, c = 0.9 * w, np.array([w / 2.0, h / 2.0])
+    K = np.array([[f, 0, c[0]], [0, f, c[1]], [0, 0, 1.0]])
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([(xs - c[0]) / f, (ys - c[1]) / f, np.ones_like(xs)], -1)
+    out = {k: [] for k in ("depth0", "depth1", "R", "t", "kp0", "kp1", "H")}
+    for _ in range(b):
+        nrm = np.array([*rng.uniform(-0.3, 0.3, 2), 1.0])
+        nrm /= np.linalg.norm(nrm)
+        d = rng.uniform(4.0, 6.0)
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        a = np.deg2rad(rng.uniform(3, 8))
+        S = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        R = np.eye(3) + np.sin(a) * S + (1 - np.cos(a)) * S @ S
+        t = rng.normal(size=3)
+        t = t / np.linalg.norm(t) * 0.4
+        depths = []
+        for nv, dv in ((nrm, d), (R @ nrm, d + (R @ nrm) @ t)):
+            z = dv / (rays @ nv)
+            z[rng.uniform(size=z.shape) < 0.03] = 0.0
+            y0, x0 = rng.integers(0, h - 60), rng.integers(0, w - 60)
+            z[y0:y0 + 50, x0:x0 + 50] = 0.0
+            depths.append(z)
+        Hm = K @ (R + np.outer(t, nrm) / d) @ np.linalg.inv(K)
+        kp0 = rng.uniform([2, 2], [w - 3, h - 3], (n, 2))
+        hp = np.c_[kp0, np.ones(n)] @ Hm.T
+        kp1 = hp[:, :2] / hp[:, 2:] + rng.normal(0, 0.5, (n, 2))
+        bad = rng.uniform(size=n) < 0.2
+        kp1[bad] = rng.uniform([0, 0], [w, h], (bad.sum(), 2))
+        for k, v in zip(out, (*depths, R, t, kp0, kp1[rng.permutation(n)], Hm)):
+            out[k].append(v)
+    out = {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+    out["size"] = np.tile(np.array([w, h], np.float32), (b, 1))
+    out["f"] = np.full((b, 2), f, np.float32)
+    out["c"] = np.tile(c.astype(np.float32), (b, 1))
+    out["valid0"] = rng.uniform(size=(b, n)) < 0.95
+    out["valid1"] = rng.uniform(size=(b, n)) < 0.95
+    return out
+
+
+def check_depth_gt(device) -> dict:
+    """(e) ``gt_matches_from_pose_depth``, ``matchers.depth_matcher`` and
+    ``matchers.oracle_matcher`` (both sources) on the card against the CPU on
+    planar_depth_scene: reprojections within DEPTH_PX on the slots visible
+    on both, matches0 (and matches1) equal on at least DEPTH_AGREE of the
+    slots."""
+    import torch
+
+    from gluefactory_torch.geometry.gt_generation import gt_matches_from_pose_depth
+    from gluefactory_torch.geometry.wrappers import Camera, Pose
+    from gluefactory_torch.models import build_model
+
+    scene = planar_depth_scene(SEED)
+
+    def inputs(dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in scene.items()}
+        cam = Camera.from_fc(t["size"], t["f"], t["c"])
+        return {"keypoints0": t["kp0"], "keypoints1": t["kp1"], "keypoint_valid0": t["valid0"],
+                "keypoint_valid1": t["valid1"], "T_0to1": Pose.from_Rt(t["R"], t["t"]),
+                "H_0to1": t["H"], "view0": {"depth": t["depth0"], "camera": cam},
+                "view1": {"depth": t["depth1"], "camera": cam}}
+
+    def gt(data):
+        v0, v1 = data["view0"], data["view1"]
+        return gt_matches_from_pose_depth(
+            data["keypoints0"], data["keypoints1"], v0["depth"], v1["depth"], v0["camera"],
+            v1["camera"], data["T_0to1"], valid0=data["keypoint_valid0"],
+            valid1=data["keypoint_valid1"])
+
+    def matcher(name: str, conf: dict):
+        def run(data):
+            return build_model(name, conf, device=data["keypoints0"].device)(data)
+        return run
+
+    runs = {"gt_matches_from_pose_depth": gt,
+            "depth_matcher": matcher("matchers.depth_matcher", {}),
+            "oracle_matcher/depth": matcher("matchers.oracle_matcher", {"source": "depth"}),
+            "oracle_matcher/homography": matcher("matchers.oracle_matcher",
+                                                 {"source": "homography"})}
+    report, failures = {}, []
+    for name, fn in runs.items():
+        with torch.inference_mode():
+            card = {k: v.cpu() for k, v in fn(inputs(device)).items()}
+            cpu = fn(inputs(torch.device("cpu")))
+        r = {}
+        for key in ("matches0", "matches1", "gt_matches0", "gt_matches1"):
+            if key in cpu:
+                r[key] = float((card[key] == cpu[key]).float().mean())
+        for key, vis in (("reproj_0to1", "visible0"), ("reproj_1to0", "visible1")):
+            for prefix in ("", "gt_"):
+                if prefix + key in cpu:
+                    both = card[prefix + vis] & cpu[prefix + vis]
+                    r[prefix + vis] = float((card[prefix + vis] == cpu[prefix + vis])
+                                            .float().mean())
+                    r[prefix + key + "_px"] = float(
+                        (card[prefix + key] - cpu[prefix + key]).abs()[both].max())
+        positives = int(((cpu.get("matches0", cpu.get("gt_matches0"))) >= 0).sum())
+        report[name] = r
+        log(f"  (e) {name} on {DEPTH_SCENE['batch']} pairs of {DEPTH_SCENE['size']} depth maps, "
+            f"{DEPTH_SCENE['keypoints']} keypoints a view ({positives} positives): card against "
+            f"CPU {json.dumps(r)}")
+        for key, value in r.items():
+            bad = value > DEPTH_PX if key.endswith("_px") else value < DEPTH_AGREE
+            if bad:
+                failures.append(f"{name} {key}: {value}")
+    if failures:
+        raise AssertionError(f"depth ground truth, card against CPU: {failures}")
+    return report
+
+
+def check_timing(device) -> tuple[dict, dict]:
+    """(f) ``timing_measurement.measure_pipeline`` of the ETH3D flagship (1024
+    keypoints, lg_tpu_stage2) on synthetic pairs at TIMING's size, batch 1
+    and 8. Returns (launches, report)."""
+    from gluefactory_torch import recipes
+    from gluefactory_torch.eval.io import load_model
+    from gluefactory_torch.eval.timing_measurement import measure_pipeline
+    from gluefactory_torch.ops import attention as A
+
+    conf = recipes.eth3d_flagship_conf()
+    model = load_model(conf["model"], conf["checkpoint"], device)
+    report = {}
+    A.reset_launches()
+    for batch in TIMING["batches"]:
+        r = measure_pipeline(model, batch, TIMING["size"], TIMING["iters"], device=device)
+        report[batch] = r
+        log(f"  (f) timing_measurement, flagship at {TIMING['size']}x{TIMING['size']}, batch "
+            f"{batch}: {r['pairs_per_s']:.2f} pairs/s, {r['ms_per_pair']:.2f} ms a pair "
+            f"({TIMING['iters']} timed calls after 3)")
+    return dict(A.launches), report
+
+
+def check_eth3d(device, root: Path, hpatches_root: Path) -> tuple[dict, dict]:
+    """Phase 17: (a) the ETH3D benchmark, (b) the refiner's static mode, (c)
+    AdaLAM on phase 8's famA, (d) the feature cache, (e) depth ground truth,
+    (f) timing_measurement. Returns ({path: attention launches}, report)."""
+    report = {"render_s": render_eth3d_set(root / "set")}
+    log(f"  rendered {ETH3D_SET['num_scenes']} scenes of {ETH3D_SET['views']} views "
+        f"(640x480, {ETH3D_SET['points']} points) in {report['render_s']:.1f} s "
+        f"({RENDER_WORKERS} processes)")
+    launches = {}
+    launches["eth3d"], report["eth3d"] = check_eth3d_benchmark(device, root)
+    launches["refiner_modes"], report["refiner"] = check_refiner_modes(device, root)
+    report["adalam"] = check_adalam(device, hpatches_root)
+    launches["feature_cache"], report["cache"] = check_feature_cache(device, root)
+    report["depth"] = check_depth_gt(device)
+    launches["timing"], report["timing"] = check_timing(device)
+    return launches, report
+
+
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
     """(kernel, "N registers, spill stores/loads") for each kernel in the
     output of nvcc -Xptxas=-v; the name is the mangled one cut after the
@@ -2845,6 +3365,12 @@ def main() -> int:
         sift_train_launches, sift_train = check_sift_training(device, Path(tmp) / "sift_train")
         log(f"  phase 16 took {time.perf_counter() - t:.1f} s")
 
+        log("phase 17: ETH3D at full width, the refiner's modes, AdaLAM, the feature cache, "
+            "depth ground truth, timing")
+        t = time.perf_counter()
+        eth3d_launches, _ = check_eth3d(device, Path(tmp) / "eth3d", Path(tmp) / "hpatches")
+        log(f"  phase 17 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
@@ -2856,7 +3382,9 @@ def main() -> int:
                              "stage1": stage1_launches["attention_rotary"],
                              "sift_gates": sift_launches["gates"]["attention_rotary"],
                              **{path: counts["attention_rotary"]
-                                for path, counts in sift_train_launches.items()}},
+                                for path, counts in sift_train_launches.items()},
+                             **{path: counts["attention_rotary"]
+                                for path, counts in eth3d_launches.items()}},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
@@ -2869,7 +3397,9 @@ def main() -> int:
                       "sift_gates": sift_launches["gates"]["attention"],
                       "sift_superglue": sift_launches["sift_superglue"]["attention"],
                       **{path: counts["attention"]
-                         for path, counts in sift_train_launches.items()}},
+                         for path, counts in sift_train_launches.items()},
+                      **{path: counts["attention"]
+                         for path, counts in eth3d_launches.items()}},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

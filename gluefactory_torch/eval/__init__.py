@@ -1,6 +1,6 @@
 """Benchmarks (gluefactory_tpu/eval): HPatches homography estimation,
-MegaDepth-1500 and ScanNet-1500 relative pose, and the registry that the
-trainer's end-of-epoch benchmarks go through."""
+MegaDepth-1500 and ScanNet-1500 relative pose, ETH3D matching AP, and the
+registry that the trainer's end-of-epoch benchmarks go through."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ BENCHMARKS = {  # name: (module, pipeline class)
     "hpatches": ("hpatches", "HPatchesPipeline"),
     "megadepth1500": ("megadepth1500", "MegaDepth1500Pipeline"),
     "scannet1500": ("scannet1500", "ScanNet1500Pipeline"),
+    "eth3d": ("eth3d", "ETH3DPipeline"),
 }
 
 

@@ -13,7 +13,6 @@ from __future__ import annotations
 import json
 import logging
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +21,7 @@ import torch
 from ..core.config import collect_defaults, merge
 from ..datasets import get_dataset
 from ..utils.device import resolve_device
+from ..utils.export_predictions import export_predictions
 from .io import load_model
 
 logger = logging.getLogger(__name__)
@@ -102,12 +102,11 @@ class EvalPipeline:
     def get_predictions(self, experiment_dir: Path, model=None) -> Path:
         """Run the model over the benchmark and cache what ``export_keys``
         names, as the JAX export does: keypoints in original-image pixels,
-        float32 stored as float16."""
-        pred_file = Path(experiment_dir) / "predictions.npz"
+        float32 stored as float16 (``utils.export_predictions``)."""
         if model is None:
             model = load_model(self.conf["model"], self.conf.get("checkpoint"), self.device)
-        cache = defaultdict(list)
-        for batch in self.get_dataloader():
+
+        def predict(batch):
             data = to_model_input(batch, self.device)
             synchronize(self.device)
             t = time.perf_counter()
@@ -115,37 +114,10 @@ class EvalPipeline:
                 pred = model(data)
             synchronize(self.device)
             self.timings["forward_ms"].append((time.perf_counter() - t) * 1e3)
-            pred = {k: v.cpu().numpy() for k, v in pred.items() if k in self.export_keys}
-            for i, name in enumerate(batch["name"]):
-                cache["names"].append(name)
-                for key, value in pred.items():
-                    value = value[i]
-                    view = batch.get(f"view{key[-1]}", {})
-                    if key.startswith("keypoints") and "scales" in view:
-                        value = value / view["scales"][i]
-                    if value.dtype == np.float32:
-                        value = value.astype(np.float16)
-                    cache[key].append(value)
-        np.savez(pred_file, **{k: np.stack(v) if k != "names" else np.array(v)
-                               for k, v in cache.items()})
-        return pred_file
-
-    def load_predictions(self, pred_file: Path):
-        """A function of a batch of one: its cached prediction as float32,
-        keypoints back on the canvas of each view."""
-        with np.load(pred_file) as f:
-            cache = {k: f[k] for k in f.files}
-        row = {str(n): i for i, n in enumerate(cache.pop("names"))}
-
-        def prediction(batch: dict) -> dict:
-            pred = {k: v[row[batch["name"][0]]] for k, v in cache.items()}
-            pred = {k: v.astype(np.float32) if v.dtype == np.float16 else v
-                    for k, v in pred.items()}
-            for vid in ("0", "1"):
-                pred[f"keypoints{vid}"] = pred[f"keypoints{vid}"] * batch[f"view{vid}"]["scales"][0]
             return pred
 
-        return prediction
+        return export_predictions(self.get_dataloader(), predict,
+                                  Path(experiment_dir) / "predictions.npz", keys=self.export_keys)
 
     def sweep(self, data: dict, pred: dict, estimate) -> dict:
         """{threshold: ``estimate(data, pred, conf, device=...)``} at each

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..models.cache_loader import CacheLoader
 from ..recipes import hpatches_flagship_conf
 from ..settings import EVAL_PATH
 from ..utils.tools import AUCMetric
@@ -51,12 +52,12 @@ class HPatchesPipeline(EvalPipeline):
     }
 
     def run_eval(self, loader, pred_file: Path):
-        prediction = self.load_predictions(pred_file)
+        cache_loader = CacheLoader({"path": str(pred_file), "collate": False})
         results = defaultdict(list)
         pose_results = defaultdict(list)
         for batch in loader:
             name = batch["name"][0]
-            data, pred = unbatch(batch), prediction(batch)
+            data, pred = unbatch(batch), cache_loader(batch)
             results_i = eval_matches_homography(data, pred, device=self.device)
             results_i.update(eval_homography_dlt(data, pred, device=self.device))
             for th, r in self.sweep(data, pred, eval_homography_robust).items():

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..models.cache_loader import CacheLoader
 from ..recipes import pose_flagship_conf
 from ..settings import EVAL_PATH
 from .eval_pipeline import EvalPipeline, unbatch
@@ -50,11 +51,11 @@ class MegaDepth1500Pipeline(EvalPipeline):
     }
 
     def run_eval(self, loader, pred_file: Path):
-        prediction = self.load_predictions(pred_file)
+        cache_loader = CacheLoader({"path": str(pred_file), "collate": False})
         results = defaultdict(list)
         pose_results = defaultdict(list)
         for batch in loader:
-            data, pred = unbatch(batch), prediction(batch)
+            data, pred = unbatch(batch), cache_loader(batch)
             results_i = eval_matches_epipolar(data, pred, device=self.device)
             for th, r in self.sweep(data, pred, eval_relative_pose_robust).items():
                 pose_results[th].append(r)

@@ -3,8 +3,9 @@ as dataclasses of plain tensors with leading batch dimensions.
 
 ``Pose`` maps camera-A coordinates to camera B: x_B = R x_A + t. ``Camera``
 follows COLMAP: the centre of the upper-left pixel is (0.5, 0.5). Only what
-the relative-pose path reads is ported: the constructors, the group
-operations, scaling, and pixels to rays through Brown distortion."""
+the relative-pose path and the depth ground truth read is ported: the
+constructors, the group operations, scaling, and pixels to rays and back
+through Brown distortion."""
 
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ class Camera:
     f: torch.Tensor
     c: torch.Tensor
     dist: torch.Tensor
+    eps = 1e-4  # the least depth in front of the camera
 
     @classmethod
     def from_fc(cls, size, f, c, dist=None) -> "Camera":
@@ -108,6 +110,28 @@ class Camera:
 
     def normalize(self, p2d: torch.Tensor) -> torch.Tensor:
         return (p2d - self.c[..., None, :]) / self.f[..., None, :]
+
+    def denormalize(self, p2d: torch.Tensor) -> torch.Tensor:
+        return p2d * self.f[..., None, :] + self.c[..., None, :]
+
+    def in_image(self, p2d: torch.Tensor) -> torch.Tensor:
+        """(..., N) whether pixels (..., N, 2) lie in [0, size - 1]."""
+        return ((p2d >= 0.0) & (p2d <= self.size[..., None, :] - 1.0)).all(dim=-1)
+
+    def project(self, p3d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Camera-frame points (..., N, 3) -> (the normalized image plane
+        (..., N, 2), whether each lies in front of the camera)."""
+        z = p3d[..., -1]
+        valid = z > self.eps
+        z_safe = torch.where(valid, z, torch.ones_like(z))
+        return p3d[..., :-1] / z_safe[..., None], valid
+
+    def cam2image(self, p3d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Camera-frame points (..., N, 3) -> (pixels (..., N, 2), whether
+        each is in front of the camera and inside the image)."""
+        p2d, visible = self.project(p3d)
+        p2d = self.denormalize(self.distort(p2d))
+        return p2d, visible & self.in_image(p2d)
 
     def image2cam(self, p2d: torch.Tensor) -> torch.Tensor:
         """Pixels (..., N, 2) -> rays at unit depth (..., N, 3)."""

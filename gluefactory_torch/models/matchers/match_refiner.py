@@ -1,12 +1,22 @@
 """Sub-pixel match refinement in the ``filter`` slot
-(gluefactory_tpu/models/matchers/match_refiner.py), window-sampling mode.
+(gluefactory_tpu/models/matchers/match_refiner.py).
 
 Per round: fit a Cauchy-IRLS weighted homography to the current matches,
-used only to shape each template by its local 2x2 Jacobian; read one integer
-window of image 1 around each matched ``kp1``; score a displacement grid
-against the template of image 0 with ZNCC; move ``kp1`` to the sub-pixel
-peak where the ZNCC and the template's texture are high enough. Refined
-positions are written back into ``keypoints1``."""
+used only to shape each template by its local 2x2 Jacobian; score a
+displacement grid around each matched ``kp1`` against a template of image 0
+with ZNCC; move ``kp1`` to the sub-pixel peak where the ZNCC and the
+template's texture are high enough. Refined positions are written back into
+``keypoints1``.
+
+``window_sampling`` picks how the candidates of image 1 are read:
+  - ``True`` (and ``'auto'``, the JAX package's choice off the TPU): one
+    integer window per match, the affinely warped patch interpolated inside
+    it;
+  - ``'static'`` (with ``search_step`` 1; else the window mode): the affine
+    compensation moves to the template, which is resampled each round at
+    A^-1 q for the integer grid q, so every candidate is a read of one
+    fractionally shifted window at a constant index;
+  - ``False``: the legacy direct bilinear taps of image 1."""
 
 from __future__ import annotations
 
@@ -92,18 +102,13 @@ class MatchRefiner(BaseModel):
         "zncc_min": 0.4,        # keep the original position below this
         "min_texture": 0.01,    # min template std (images in [0, 1])
         "affine_compensation": True,
-        # 'auto' is the window mode off the TPU; 'static' and the legacy
-        # direct taps (False) are not ported
+        # 'auto' (the window mode off the TPU), True (window), 'static'
+        # (template-side affine, constant-index reads), False (direct taps)
         "window_sampling": "auto",
         "max_patch_stretch": 1.5,  # bounds the warped patch and the window
         "trainable": False,
     }
     required_data_keys: ClassVar[list] = ["view0", "view1"]
-
-    def __init__(self, conf: dict | None = None):
-        super().__init__(conf)
-        if self.conf["window_sampling"] not in ("auto", True):
-            raise NotImplementedError("only window_sampling=True ('auto') is ported")
 
     def _forward(self, data: dict) -> dict:
         conf = self.conf
@@ -147,12 +152,32 @@ class MatchRefiner(BaseModel):
         textured = t_std > float(conf["min_texture"])
 
         amax = float(conf["max_patch_stretch"])
-        # window radius: the search, the clamped warped patch and one bilinear tap
-        rad = int(math.ceil(s * step + r * amax)) + 1
-        wside = 2 * rad + 1
-        wgrid = torch.arange(-rad, rad + 1, device=dev)
+        mode = conf["window_sampling"]
+        use_static = mode == "static" and step == 1.0  # integer displacement offsets
+        use_window = mode is True or mode == "auto" or (mode == "static" and not use_static)
         img_h, img_w = img1.shape[1:3]
         flat1 = img1.reshape(b, img_h * img_w)
+        if use_window:
+            # the search, the clamped warped patch and one bilinear tap
+            rad = int(math.ceil(s * step + r * amax)) + 1
+        elif use_static:
+            rad = s + r + 1
+            # constant (D*P,) index map into the fractionally shifted
+            # (2 rad)^2 window, whose entry j sits at offset j - rad
+            off = (disp[:, None, :] + patch[None, :, :] + float(rad)).int()  # (D, P, 2)
+            static_idx = (off[..., 1] * (2 * rad) + off[..., 0]).reshape(-1).long()
+        if use_window or use_static:
+            wside = 2 * rad + 1
+            wgrid = torch.arange(-rad, rad + 1, device=dev)
+
+        def window(p1):
+            """(integer window (B, N, wside, wside) around p1, its fraction)."""
+            base = p1.floor().long()
+            wy = (base[..., 1:2] + wgrid).clamp(0, img_h - 1)
+            wx = (base[..., 0:1] + wgrid).clamp(0, img_w - 1)
+            widx = wy[:, :, :, None] * img_w + wx[:, :, None, :]
+            win = torch.take_along_dim(flat1, widx.reshape(b, -1), dim=1)
+            return win.reshape(b, n, wside, wside), p1 - base.float()
 
         for _ in range(int(conf["rounds"])):
             if conf["affine_compensation"]:
@@ -162,32 +187,54 @@ class MatchRefiner(BaseModel):
                 warped_patch = torch.einsum("bnij,pj->bnpi", A, patch)
             else:
                 warped_patch = patch.expand(b, n, p, 2)
-            warped_patch = warped_patch.clamp(-r * amax, r * amax)
-            base = p1.floor().long()
-            frac = p1 - base.float()
-            # one dense integer window per match: (B, N, wside, wside)
-            wy = (base[..., 1:2] + wgrid).clamp(0, img_h - 1)
-            wx = (base[..., 0:1] + wgrid).clamp(0, img_w - 1)
-            widx = wy[:, :, :, None] * img_w + wx[:, :, None, :]
-            win = torch.take_along_dim(flat1, widx.reshape(b, -1), dim=1).reshape(
-                b, n, wside * wside)
-            # candidate positions relative to the window origin: (B, N, D, P, 2)
-            q = (frac[:, :, None, None, :] + disp[:, None, :]
-                 + warped_patch[:, :, None, :, :] + float(rad))
-            qx = q[..., 0].clamp(0.0, wside - 1.0)
-            qy = q[..., 1].clamp(0.0, wside - 1.0)
-            x0 = qx.floor().long().clamp(0, wside - 2)
-            y0 = qy.floor().long().clamp(0, wside - 2)
-            fx = qx - x0.float()
-            fy = qy - y0.float()
+            tpl_round = tpl_n  # the static mode resamples it each round
+            if use_static:
+                if conf["affine_compensation"]:
+                    det = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
+                    det = torch.where(det.abs() < 1e-6, torch.where(det < 0, -1e-6, 1e-6), det)
+                    A_inv = torch.stack([torch.stack([A[..., 1, 1], -A[..., 0, 1]], -1),
+                                         torch.stack([-A[..., 1, 0], A[..., 0, 0]], -1)],
+                                        -2) / det[..., None, None]
+                else:
+                    A_inv = torch.eye(2, device=dev).expand(b, n, 2, 2)
+                # the template resampled each round at A^-1 q (bounded stretch)
+                back = torch.einsum("bnij,pj->bnpi", A_inv, patch).clamp(-r * amax, r * amax)
+                tpl_r = bilinear_sample(img0, (p0[:, :, None, :] + back).reshape(b, n * p, 2))
+                tpl_round = _zncc_normalize(tpl_r.reshape(b, n, p))
+                # the integer window around p1 shifted by its fraction (a pure lerp)
+                win, frac = window(p1)
+                fx = frac[..., 0][..., None, None]
+                fy = frac[..., 1][..., None, None]
+                w_f = (win[:, :, :-1, :-1] * (1 - fx) * (1 - fy)
+                       + win[:, :, :-1, 1:] * fx * (1 - fy)
+                       + win[:, :, 1:, :-1] * (1 - fx) * fy
+                       + win[:, :, 1:, 1:] * fx * fy).reshape(b, n, (2 * rad) * (2 * rad))
+                cand = w_f[..., static_idx].reshape(b, n, d, p)
+            elif use_window:
+                warped_patch = warped_patch.clamp(-r * amax, r * amax)
+                win, frac = window(p1)
+                win = win.reshape(b, n, wside * wside)
+                # candidate positions relative to the window origin: (B, N, D, P, 2)
+                q = (frac[:, :, None, None, :] + disp[:, None, :]
+                     + warped_patch[:, :, None, :, :] + float(rad))
+                qx = q[..., 0].clamp(0.0, wside - 1.0)
+                qy = q[..., 1].clamp(0.0, wside - 1.0)
+                x0 = qx.floor().long().clamp(0, wside - 2)
+                y0 = qy.floor().long().clamp(0, wside - 2)
+                fx = qx - x0.float()
+                fy = qy - y0.float()
 
-            def at_win(yy, xx):
-                idx = (yy * wside + xx).reshape(b, n, d * p)
-                return torch.take_along_dim(win, idx, dim=2).reshape(b, n, d, p)
+                def at_win(yy, xx):
+                    idx = (yy * wside + xx).reshape(b, n, d * p)
+                    return torch.take_along_dim(win, idx, dim=2).reshape(b, n, d, p)
 
-            cand = ((at_win(y0, x0) * (1 - fx) + at_win(y0, x0 + 1) * fx) * (1 - fy)
-                    + (at_win(y0 + 1, x0) * (1 - fx) + at_win(y0 + 1, x0 + 1) * fx) * fy)
-            zncc = (tpl_n[:, :, None, :] * _zncc_normalize(cand)).mean(dim=-1)  # (B, N, D)
+                cand = ((at_win(y0, x0) * (1 - fx) + at_win(y0, x0 + 1) * fx) * (1 - fy)
+                        + (at_win(y0 + 1, x0) * (1 - fx) + at_win(y0 + 1, x0 + 1) * fx) * fy)
+            else:  # the legacy direct taps
+                c_pts = (p1[:, :, None, None, :] + disp[:, None, :]
+                         + warped_patch[:, :, None, :, :])  # (B, N, D, P, 2)
+                cand = bilinear_sample(img1, c_pts.reshape(b, n * d * p, 2)).reshape(b, n, d, p)
+            zncc = (tpl_round[:, :, None, :] * _zncc_normalize(cand)).mean(dim=-1)  # (B, N, D)
             delta, peak = _quadratic_peak(zncc, side)
             ok = valid & textured & (peak > float(conf["zncc_min"]))
             p1 = torch.where(ok[..., None], p1 + delta * step, p1)

@@ -597,6 +597,61 @@ def hpatches_sp_nn_conf() -> dict:
     from ``SP_STAGE0B_WEIGHTS``."""
     return copy.deepcopy(_HPATCHES_SP_NN)
 
+_HPATCHES_SIFT_NN_ADALAM = {  # outputs/results/hpatches/sift_nn_adalam/conf.yaml
+    "data": _HPATCHES_DATA,
+    "model": {"name": "two_view_pipeline",
+              "extractor": {"name": "extractors.sift", "max_num_keypoints": 2048},
+              "matcher": {"name": "matchers.nearest_neighbor_matcher", "ratio_thresh": None,
+                          "mutual_check": True},
+              "filter": {"name": "matchers.adalam", "min_inliers": 5}},
+    "eval": _HPATCHES_EVAL,
+    "checkpoint": None,
+}
+
+
+def hpatches_sift_nn_adalam_conf() -> dict:
+    """SIFT (2048 keypoints, contrast 0.04), the mutual nearest neighbour
+    without a ratio test and AdaLAM (5 inliers) in the filter slot on the
+    HPatches benchmark: no weights."""
+    return copy.deepcopy(_HPATCHES_SIFT_NN_ADALAM)
+
+
+# --- the ETH3D benchmark ----------------------------------------------------------
+
+_ETH3D_DATA = {"name": "eth3d", "min_covisible": 300, "max_pairs_per_scene": 8}
+_ETH3D_SP_LG = {
+    "name": "two_view_pipeline",
+    "extractor": {"name": "extractors.superpoint", "max_num_keypoints": 1024,
+                  "detection_threshold": 0.005, "refinement_radius": 2},
+    "matcher": {"name": "matchers.lightglue", "filter_threshold": 0.1,
+                "depth_confidence": -1, "width_confidence": -1,
+                "save_layer_outputs": False, "checkpointed": False, "n_layers": 6},
+    "ground_truth": {"name": None},
+    "run_gt_in_forward": False,
+}
+_ETH3D_SP_LG_STAGE2 = {  # outputs/results/eth3d/sp_lg_stage2/conf.yaml
+    "data": _ETH3D_DATA,
+    "model": _ETH3D_SP_LG,
+    "eval": {"correct_th": 0.001},
+    "checkpoint": "weights/lg_tpu_stage2.f16.msgpack",
+}
+_ETH3D_FLAGSHIP = copy.deepcopy(_ETH3D_SP_LG_STAGE2)  # outputs/results/eth3d/sp_lg2_com_refine
+_ETH3D_FLAGSHIP["model"]["extractor"]["refinement_mode"] = "com"
+_ETH3D_FLAGSHIP["model"]["filter"] = {"name": "matchers.match_refiner"}
+
+
+def eth3d_flagship_conf() -> dict:
+    """The flagship on the ETH3D benchmark: SuperPoint at 1024 keypoints with
+    the CoM readout on the 1024-pixel canvas, 6-layer LightGlue from
+    ``STAGE2_WEIGHTS``, the refiner; covisibility 300, 8 pairs a scene; a
+    match is correct within 1e-3 of its epipolar line."""
+    return copy.deepcopy(_ETH3D_FLAGSHIP)
+
+
+def eth3d_sp_lg_stage2_conf() -> dict:
+    """``eth3d_flagship_conf`` without the CoM readout and the refiner."""
+    return copy.deepcopy(_ETH3D_SP_LG_STAGE2)
+
 
 # --- SIFT-feature training on the cached-feature engine -----------------------------
 

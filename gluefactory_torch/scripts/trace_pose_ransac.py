@@ -31,6 +31,7 @@ from ..core.config import merge
 from ..eval.eval_pipeline import SWEEP, synchronize, unbatch
 from ..eval.megadepth1500 import MegaDepth1500Pipeline
 from ..eval.utils import eval_relative_pose_robust
+from ..models.cache_loader import CacheLoader
 from ..recipes import pose_flagship_conf
 from ..scripts.generate_pose_eval_set import render_scene_job, write_pairs
 from ..utils.device import resolve_device
@@ -60,7 +61,7 @@ def main(argv: list[str] | None = None) -> None:
         pipeline = MegaDepth1500Pipeline(conf, device=device)
         pred_file = pipeline.get_predictions(tmp)
         batch = next(iter(pipeline.get_dataloader()))
-        data, pred = unbatch(batch), pipeline.load_predictions(pred_file)(batch)
+        data, pred = unbatch(batch), CacheLoader({"path": str(pred_file)})(batch)
 
     def sweep():
         pipeline.sweep(data, pred, eval_relative_pose_robust)

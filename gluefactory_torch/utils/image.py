@@ -55,8 +55,11 @@ def read_image(path: str | Path, grayscale: bool = False) -> np.ndarray:
     """A binary PPM (P6) or PGM (P5) file as uint8 RGB (H, W, 3), or (H, W)
     when ``grayscale`` (OpenCV's BGR-to-gray weights on a colour file)."""
     data = Path(path).read_bytes()
+    if data[:2] not in (b"P5", b"P6"):
+        raise IOError(f"Could not read image at {path}: a {Path(path).suffix or 'suffix-less'} "
+                      "file that is not a binary PPM/PGM (the only formats read)")
     magic, (w, h, maxval), offset = _pnm_header(data)
-    if magic not in ("P5", "P6") or maxval != 255:
+    if maxval != 255:
         raise IOError(f"Could not read image at {path}: not an 8-bit binary PPM/PGM")
     channels = 3 if magic == "P6" else 1
     image = np.frombuffer(data, np.uint8, h * w * channels, offset).reshape(h, w, channels)

@@ -20,7 +20,8 @@ torch.set_num_threads(2)
 
 PORTED = ["extractors.superpoint", "matchers.lightglue", "matchers.homography_matcher",
           "matchers.match_refiner", "two_view_pipeline", "extractors.sift",
-          "matchers.superglue", "matchers.nearest_neighbor_matcher"]
+          "matchers.superglue", "matchers.nearest_neighbor_matcher", "matchers.adalam",
+          "matchers.depth_matcher", "matchers.oracle_matcher"]
 
 
 def _leaves(conf: dict, prefix: str = "") -> dict:
@@ -87,6 +88,8 @@ def test_unported_keys_refuse_any_other_value(name):
     ("matchers.lightglue", {"loss": {"nll_balancing": 0.25}}),
     ("matchers.lightglue", {"loss": {"fn": "focal"}}),
     ("extractors.superpoint", {"dtype": "int8"}),
+    ("matchers.depth_matcher", {"use_lines": True}),
+    ("matchers.depth_matcher", {"line_dist_th": 3.0}),
 ])
 def test_refused_settings_name_the_key(name, conf):
     key = next(iter(_leaves(conf)))
@@ -118,6 +121,11 @@ def test_recipes_still_build():
     ("matchers.nearest_neighbor_matcher", {"ratio_thresh": 0.8, "mutual_check": False}),
     ("extractors.sift", {"contrast_threshold": 0.02, "rootsift": False}),
     ("matchers.lightglue", {"add_scale_ori": True, "input_dim": 128}),
+    ("matchers.match_refiner", {"window_sampling": "static"}),
+    ("matchers.match_refiner", {"window_sampling": False, "affine_compensation": False}),
+    ("matchers.depth_matcher", {"th_epi": 2.0, "use_points": False}),
+    ("matchers.oracle_matcher", {"source": "depth"}),
+    ("matchers.adalam", {"num_seeds": 32, "seed": 3}),
 ])
 def test_ported_switches_build(name, conf):
     """The keys this slice ported left ``unported_conf`` and build."""
@@ -153,8 +161,8 @@ def test_trainer_refuses_run_benchmarks():
     conf = stage2_conf()
     conf["data"].update(pool_size=1, source_size=[96, 96])
     conf["train"]["load_experiment"] = None  # stage 2's start is not committed
-    conf["train"]["run_benchmarks"] = [{"name": "eth3d"}]
-    with pytest.raises(NotImplementedError, match="eth3d"):
+    conf["train"]["run_benchmarks"] = [{"name": "megadepth1500_extended"}]
+    with pytest.raises(NotImplementedError, match="megadepth1500_extended"):
         Trainer(conf, device="cpu")
     conf["train"]["run_benchmarks"] = [{"name": "hpatches",
                                         "model": {"matcher": {"descriptor_dim": 128}}}]

@@ -153,6 +153,38 @@ with tempfile.TemporaryDirectory() as tmp:
     pred, quality = chip_smoke.run_pair(sg_model, estimator,
                                         *chip_smoke.gate_pairs(Path(tmp) / "gate", "cpu")[0])
     assert pred["matches0"].shape == (1, 64) and int((pred["matches0"] > -1).sum()) > 10
+# the ETH3D benchmark on a scene the port renders, the feature cache and the
+# filter-slot and ground-truth models of the eleventh slice
+from gluefactory_torch.eval.eth3d import ETH3DPipeline
+from gluefactory_torch.eval.timing_measurement import measure_pipeline
+from gluefactory_torch.datasets.image_folder import ImageFolderDataset
+from gluefactory_torch.models.cache_loader import CacheLoader
+from gluefactory_torch.scripts.export_features import export_features, view_cache
+from gluefactory_torch.scripts.generate_eth3d_set import render_eth3d_scene
+
+with tempfile.TemporaryDirectory() as tmp:
+    render_eth3d_scene(Path(tmp) / "set" / "scene000", np.random.default_rng(0), (160, 120),
+                       n_views=3, n_points=400)
+    eth = ETH3DPipeline({{"data": {{"data_dir": str(Path(tmp) / "set"), "min_covisible": 100,
+                                    "preprocessing": {{"resize": 160}}}},
+                         "model": {{**conf, "name": "two_view_pipeline",
+                                   "filter": {{"name": "matchers.match_refiner",
+                                              "window_sampling": "static"}}}}}}, device="cpu")
+    summaries, results = eth.run(Path(tmp) / "eth_eval", model=model)
+    assert len(results["names"]) == 3 and 0 <= summaries["AP"] <= 100, summaries
+    folder = ImageFolderDataset({{"images": str(Path(tmp) / "set" / "scene000" / "images"),
+                                  "preprocessing": {{"resize": 160}}}})
+    out = export_features(folder, model.extractor, Path(tmp) / "sp.npz", device="cpu")
+    cache = view_cache(CacheLoader({{"path": str(out)}}), "view1.ppm", folder[1]["scales"], "cpu")
+    assert cache["keypoints"].shape == (1, 48, 2) and cache["descriptors"].dtype == torch.float32
+    assert measure_pipeline(model, 1, 64, iters=1, warmup=1, device="cpu")["pairs_per_s"] > 0
+adalam = build_model("two_view_pipeline", {{**conf, "filter": {{"name": "matchers.adalam"}}}},
+                     device="cpu")
+size = torch.tensor([[img0.shape[1], img0.shape[0]]], dtype=torch.float32)
+views = {{f"view{{i}}": {{"image": img[None], "image_size": size}} for i, img in enumerate((img0, img1))}}
+assert "adalam_kept" in adalam(views)
+for name in ("matchers.depth_matcher", "matchers.oracle_matcher"):
+    build_model(name, device="cpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

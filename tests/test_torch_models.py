@@ -262,8 +262,10 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
 
 
 def test_unported_options_raise():
-    # adaptive depth and width (tests/test_torch_adaptive.py) and add_scale_ori
-    # (test_lightglue_scale_ori_matches_jax) are ported
+    # adaptive depth and width (tests/test_torch_adaptive.py), add_scale_ori
+    # (test_lightglue_scale_ori_matches_jax) and the refiner's static mode
+    # (tests/test_torch_refiner_modes.py) are ported; line ground truth is not
     build_model("matchers.lightglue", {"add_scale_ori": True}, device="cpu")
+    build_model("matchers.match_refiner", {"window_sampling": "static"}, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model("matchers.match_refiner", {"window_sampling": "static"}, device="cpu")
+        build_model("matchers.depth_matcher", {"use_lines": True}, device="cpu")

@@ -34,6 +34,7 @@ from gluefactory_torch.eval.utils import (
 )
 from gluefactory_torch.geometry import essential as port_essential
 from gluefactory_torch.geometry.epipolar import relative_pose_error
+from gluefactory_torch.models.cache_loader import CacheLoader
 from gluefactory_torch.recipes import pose_flagship_conf
 from gluefactory_torch.robust_estimators.relative_pose import ransac as port_ransac
 from gluefactory_torch.scripts.generate_pose_eval_set import render_pose_scene
@@ -195,10 +196,10 @@ def test_pipeline_evaluation_matches_jax(scene, tmp_path, monkeypatch):
         np.testing.assert_allclose(results[key], jresults[key], atol=0.005)
 
     # each threshold of the sweep, as the pipelines run it
-    prediction = pipeline.load_predictions(tmp_path / "port" / "predictions.npz")
+    cache_loader = CacheLoader({"path": str(tmp_path / "port" / "predictions.npz")})
     errors, jerrors, float64 = {}, {}, {}
     for batch, jbatch in zip(pipeline.get_dataloader(), jpipeline.get_dataloader()):
-        data, pred = unbatch(batch), prediction(batch)
+        data, pred = unbatch(batch), cache_loader(batch)
         jdata = {k: v[0] if k.startswith(("camera", "T_")) else v for k, v in jbatch.items()}
         for th in SWEEP:
             errors.setdefault(th, []).append(eval_relative_pose_robust(

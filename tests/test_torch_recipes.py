@@ -118,15 +118,18 @@ def test_stage1_and_stage6_starts(caplog):
         assert torch.equal(value, ref), name
 
 
-# benchmark recipe -> the folder of outputs/results/hpatches whose conf.yaml it is
-BENCHMARKS = {"hpatches_sift_superglue_conf": "sift_sg_stage1",
-              "hpatches_sift_nn_conf": "sift_nn",
-              "hpatches_sp_nn_conf": "sp0b_nn_com"}
+# benchmark recipe -> the folder of outputs/results whose conf.yaml it is
+BENCHMARKS = {"hpatches_sift_superglue_conf": "hpatches/sift_sg_stage1",
+              "hpatches_sift_nn_conf": "hpatches/sift_nn",
+              "hpatches_sp_nn_conf": "hpatches/sp0b_nn_com",
+              "hpatches_sift_nn_adalam_conf": "hpatches/sift_nn_adalam",
+              "eth3d_flagship_conf": "eth3d/sp_lg2_com_refine",
+              "eth3d_sp_lg_stage2_conf": "eth3d/sp_lg_stage2"}
 
 
 @pytest.mark.parametrize("recipe", sorted(BENCHMARKS))
 def test_benchmark_recipe_is_its_conf(recipe):
-    path = ROOT_PATH / "outputs/results/hpatches" / BENCHMARKS[recipe] / "conf.yaml"
+    path = ROOT_PATH / "outputs/results" / BENCHMARKS[recipe] / "conf.yaml"
     conf = getattr(R, recipe)()
     assert conf == yaml.safe_load(path.read_text())
     assert conf["checkpoint"] is None or (ROOT_PATH / conf["checkpoint"]).exists()

@@ -65,3 +65,30 @@ def test_runtime_files_are_sent_to_the_gpu_machine():
     for path in RUNTIME_FILES:
         assert not any(path == pattern or path.startswith(pattern + "/")
                        for pattern in ignored), f"{path} is kept off the GPU machine"
+
+
+def _chip_recipes() -> list[str]:
+    """The recipes of gluefactory_torch.recipes that chip_smoke.py runs."""
+    import re
+
+    from gluefactory_torch import recipes
+
+    text = (ROOT / "chip_smoke.py").read_text()
+    return sorted({name for name in re.findall(r"\b(\w+_conf)\(\)", text)
+                   if callable(getattr(recipes, name, None))})
+
+
+@pytest.mark.parametrize("recipe", _chip_recipes())
+def test_chip_recipes_read_blobs_the_gpu_machine_gets(recipe, tracked):
+    """Each recipe that chip_smoke.py runs (phase 17's ETH3D and AdaLAM ones
+    among them) names only weight blobs that are tracked and sent to the
+    GPU machine: its ``checkpoint`` and its trainer's ``load_experiment``."""
+    from gluefactory_torch import recipes
+
+    conf = getattr(recipes, recipe)()
+    blobs = [conf.get("checkpoint"), conf.get("train", {}).get("load_experiment")]
+    for blob in blobs:
+        for path in str(blob).split(",") if blob else []:
+            path = str(Path(path).relative_to(ROOT)) if Path(path).is_absolute() else path
+            if path.startswith("weights/"):
+                assert path in RUNTIME_FILES and path in tracked, f"{recipe}: {path}"

@@ -1,5 +1,6 @@
-"""Benchmarks (gluefactory_tpu/eval): HPatches homography estimation,
-MegaDepth-1500 and ScanNet-1500 relative pose, ETH3D matching AP, and the
+"""Benchmarks (gluefactory_tpu/eval): HPatches homography estimation and its
+extended (points and lines) form, MegaDepth-1500 relative pose and its
+extended form, ScanNet-1500 relative pose, ETH3D matching AP, and the
 registry that the trainer's end-of-epoch benchmarks go through."""
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ BENCHMARKS = {  # name: (module, pipeline class)
     "megadepth1500": ("megadepth1500", "MegaDepth1500Pipeline"),
     "scannet1500": ("scannet1500", "ScanNet1500Pipeline"),
     "eth3d": ("eth3d", "ETH3DPipeline"),
+    "hpatches_extended": ("hpatches_extended", "HPatchesExtendedPipeline"),
+    "megadepth1500_extended": ("megadepth1500_extended", "MegaDepth1500ExtendedPipeline"),
 }
 
 

@@ -77,7 +77,8 @@ def unbatch(batch: dict) -> dict:
 
 class EvalPipeline:
     """A benchmark over the dataset named by ``conf['data']``: ``run`` caches
-    the model's predictions (``export_keys``), then scores them
+    the model's predictions (``export_keys``, and ``optional_export_keys``
+    where the model makes them), then scores them
     (``run_eval``). ``timings`` holds host-clock milliseconds a pair, each
     ended by a device synchronise: ``forward_ms`` and ``ransac_sweep_ms``."""
 
@@ -87,6 +88,7 @@ class EvalPipeline:
         "keypoint_valid0", "keypoint_valid1",
         "matches0", "matches1", "matching_scores0", "matching_scores1",
     ]
+    optional_export_keys: list = []
 
     def __init__(self, conf: dict | None = None, device="cuda"):
         """``conf`` is merged over the ``default_conf`` of the class and its
@@ -116,8 +118,10 @@ class EvalPipeline:
             self.timings["forward_ms"].append((time.perf_counter() - t) * 1e3)
             return pred
 
-        return export_predictions(self.get_dataloader(), predict,
-                                  Path(experiment_dir) / "predictions.npz", keys=self.export_keys)
+        return export_predictions(
+            self.get_dataloader(), predict, Path(experiment_dir) / "predictions.npz",
+            keys=self.export_keys,
+            optional_keys=("keypoint_valid0", "keypoint_valid1", *self.optional_export_keys))
 
     def sweep(self, data: dict, pred: dict, estimate) -> dict:
         """{threshold: ``estimate(data, pred, conf, device=...)``} at each

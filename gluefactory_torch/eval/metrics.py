@@ -1,16 +1,15 @@
 """Detector- and descriptor-level metrics under a known homography
-(gluefactory_tpu/eval/metrics.py, its point half): keypoint repeatability
-and localisation error, matching scores, and the homography correctness of
+(gluefactory_tpu/eval/metrics.py): keypoint and line repeatability and
+localisation error, matching scores, and the homography correctness of
 mutual nearest-neighbour descriptor matches. Batched tensors with validity
-masks; ``descriptor_homography_correctness`` takes one image pair.
-
-``line_repeatability`` needs the line geometry, which is not ported."""
+masks; ``descriptor_homography_correctness`` takes one image pair."""
 
 from __future__ import annotations
 
 import torch
 
-from ..geometry.homography import homography_corner_error, warp_points
+from ..geometry.homography import homography_corner_error, warp_lines, warp_points
+from ..geometry.lines import orth_line_dist, struct_line_dist
 
 
 def _inside(points: torch.Tensor, image_size: torch.Tensor) -> torch.Tensor:
@@ -29,6 +28,25 @@ def keypoint_repeatability(kpts0, kpts1, valid0, valid1, H_0to1, image_size1,
     dmin = torch.where(valid1[:, None, :], d, torch.inf).amin(dim=-1)
     repeated = (dmin < th) & val
     rep = repeated.sum(-1) / val.sum(-1).clamp_min(1)
+    loc = torch.where(repeated, dmin, 0.0).sum(-1) / repeated.sum(-1).clamp_min(1)
+    return rep, loc
+
+
+def line_repeatability(lines0, lines1, valid0, valid1, H_0to1, image_size1,
+                       th: float = 5.0, distance: str = "orth"):
+    """The share of view-0 lines (warped into view 1 and clipped to it)
+    whose mutual nearest view-1 line, by the ``'orth'`` or ``'struct'``
+    distance, lies within ``th``, and the mean distance of those. Returns
+    (rep (B,), loc_error (B,))."""
+    warped0, wvalid = warp_lines(lines0, H_0to1, image_size1)
+    val0 = valid0 & wvalid
+    dist_fn = orth_line_dist if distance == "orth" else struct_line_dist
+    D = torch.where(val0[:, :, None] & valid1[:, None, :], dist_fn(warped0, lines1), torch.inf)
+    arg0, arg1 = D.argmin(dim=-1), D.argmin(dim=-2)
+    mutual = arg1.gather(1, arg0) == torch.arange(lines0.shape[1], device=D.device)
+    dmin = D.amin(dim=-1)
+    repeated = mutual & (dmin < th) & val0
+    rep = repeated.sum(-1) / val0.sum(-1).clamp_min(1)
     loc = torch.where(repeated, dmin, 0.0).sum(-1) / repeated.sum(-1).clamp_min(1)
     return rep, loc
 

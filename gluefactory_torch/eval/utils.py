@@ -4,9 +4,9 @@ weighted DLT with IRLS, robust homography and relative pose, and the AUC of
 a threshold sweep with the best threshold by mAA. A failed estimate is NaN.
 
 Predictions come in as numpy arrays of one pair; the geometry runs on
-``device`` (the card unless the caller passes 'cpu'). Points only: a
-prediction with line matches is refused until the line-aware estimators
-are ported."""
+``device`` (the card unless the caller passes 'cpu'). The point metrics
+ignore lines; the robust homography feeds a prediction's matched lines to
+the estimator (``hybrid_ransac`` uses them, ``ransac`` does not)."""
 
 from __future__ import annotations
 
@@ -36,12 +36,6 @@ def get_matches_scores(kpts0, kpts1, matches0, mscores0):
             np.asarray(mscores0), valid)
 
 
-def _refuse_lines(pred: dict) -> None:
-    if "lines0" in pred or "line_matches0" in pred:
-        raise NotImplementedError("line matches are not ported; the homography "
-                                  "evaluation takes points only")
-
-
 def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
@@ -54,7 +48,6 @@ def _image_size(data: dict, device) -> torch.Tensor:
 def eval_matches_homography(data: dict, pred: dict, device="cuda") -> dict:
     """Matches, keypoints, precision at 1/3/5 px and the mean error of the
     matches under the ground-truth homography."""
-    _refuse_lines(pred)
     device = resolve_device(device)
     pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
                                               pred["matches0"], pred["matching_scores0"])
@@ -73,7 +66,6 @@ def eval_matches_homography(data: dict, pred: dict, device="cuda") -> dict:
 def eval_homography_dlt(data: dict, pred: dict, irls: int = 3, device="cuda") -> dict:
     """Corner error of the score-weighted DLT homography of the matches, after
     ``irls`` Cauchy reweighting passes (scale 2 px)."""
-    _refuse_lines(pred)
     device = resolve_device(device)
     pts0, pts1, scores, valid = get_matches_scores(
         pred["keypoints0"], pred["keypoints1"], pred["matches0"], pred["matching_scores0"])
@@ -93,15 +85,27 @@ def eval_homography_dlt(data: dict, pred: dict, irls: int = 3, device="cuda") ->
 def eval_homography_robust(data: dict, pred: dict, conf: dict, device="cuda",
                            sample_idx: np.ndarray | None = None) -> dict:
     """Corner error and inliers of the robust estimator named by
-    ``conf['estimator']`` (RANSAC). ``sample_idx`` (S, 4) fixes its minimal
-    sets."""
-    _refuse_lines(pred)
+    ``conf['estimator']`` (``ransac``, ``hybrid_ransac``). Where the
+    prediction holds ``lines0`` and ``line_matches0``, the matched segments
+    go to the estimator as ``m_lines0``/``m_lines1`` (``orig_lines*`` where
+    present), invalid lines and unmatched ones masked by ``valid_lines``.
+    ``sample_idx`` (S, 4) fixes its minimal sets."""
     device = resolve_device(device)
     pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
                                               pred["matches0"], pred["matching_scores0"])
     estimator = load_estimator("homography", conf.get("estimator", "ransac"))(conf)
     est_data = {"m_kpts0": _tensor(pts0, device), "m_kpts1": _tensor(pts1, device),
                 "valid": torch.as_tensor(valid, device=device)}
+    if "lines0" in pred and "line_matches0" in pred:
+        l0 = np.asarray(pred.get("orig_lines0", pred["lines0"]))
+        l1 = np.asarray(pred.get("orig_lines1", pred["lines1"]))
+        lm0 = np.asarray(pred["line_matches0"]).astype(int)
+        lvalid = lm0 > -1
+        if "valid_lines0" in pred:
+            lvalid = lvalid & np.asarray(pred["valid_lines0"]).astype(bool)
+        est_data["m_lines0"] = _tensor(l0, device)
+        est_data["m_lines1"] = _tensor(l1[np.clip(lm0, 0, len(l1) - 1)], device)
+        est_data["valid_lines"] = torch.as_tensor(lvalid, device=device)
     if sample_idx is not None:
         est_data["sample_idx"] = torch.tensor(np.asarray(sample_idx), dtype=torch.long,
                                               device=device)

@@ -76,6 +76,33 @@ def sym_homography_error(kpts0: torch.Tensor, kpts1: torch.Tensor,
     return 0.5 * (err0 + err1)
 
 
+def warp_lines(lines: torch.Tensor, H: torch.Tensor, image_size: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warp segments (..., L, 2, 2) by H (..., 3, 3) and clip them to the
+    image [0, w - 1] x [0, h - 1] of ``image_size`` (..., 2) with a
+    Liang-Barsky clip of the parametric segment. Returns (clipped segments,
+    zero where invalid; valid (..., L): some part lies inside)."""
+    shp = lines.shape
+    pts = warp_points(lines.reshape(*shp[:-3], -1, 2), H).reshape(shp)
+    p0, p1 = pts[..., 0, :], pts[..., 1, :]
+    d = p1 - p0
+    w = image_size[..., None, 0] - 1.0
+    h = image_size[..., None, 1] - 1.0
+    t0, t1 = torch.zeros_like(p0[..., 0]), torch.ones_like(p0[..., 0])
+    ok = torch.ones_like(t0, dtype=torch.bool)
+    for p, q in ((-d[..., 0], p0[..., 0]), (d[..., 0], w - p0[..., 0]),
+                 (-d[..., 1], p0[..., 1]), (d[..., 1], h - p0[..., 1])):
+        # the part of the segment where p * t <= q
+        flat = p.abs() < 1e-9
+        r = q / torch.where(flat, torch.where(p >= 0, 1e-9, -1e-9), p)
+        t0 = torch.where(p < 0, torch.maximum(t0, r), t0)
+        t1 = torch.where(p > 0, torch.minimum(t1, r), t1)
+        ok = ok & torch.where(flat, q >= 0, True)
+    valid = ok & (t0 < t1)
+    clipped = torch.stack([p0 + t0[..., None] * d, p0 + t1[..., None] * d], dim=-2)
+    return torch.where(valid[..., None, None], clipped, torch.zeros_like(clipped)), valid
+
+
 def homography_corner_error(H_est: torch.Tensor, H_gt: torch.Tensor,
                             image_size: torch.Tensor) -> torch.Tensor:
     """Mean displacement of the four warped image corners (...,);

@@ -1,6 +1,7 @@
 """Match assignment (gluefactory_tpu/ops/assignment.py): LightGlue's
-sigmoid-matchability double softmax, SuperGlue's Sinkhorn optimal transport
-with dustbins, and mutual-argmax filtering. Batched, static-shape and
+sigmoid-matchability double softmax, GlueStick's dustbin double softmax,
+SuperGlue's Sinkhorn optimal transport with dustbins, and mutual-argmax
+filtering. Batched, static-shape and
 mask-aware; plain PyTorch on the device (JAX runs them as plain XLA)."""
 
 from __future__ import annotations
@@ -42,6 +43,33 @@ def sigmoid_log_double_softmax(sim: torch.Tensor, z0: torch.Tensor, z1: torch.Te
     if pair is not None:
         scores = scores.masked_fill(~pair, NEG_INF)
     return scores
+
+
+def log_double_softmax(sim: torch.Tensor, bin_score: torch.Tensor,
+                       mask0: torch.Tensor | None = None,
+                       mask1: torch.Tensor | None = None) -> torch.Tensor:
+    """GlueStick's dustbin double softmax: sim (B, N, M) with a bin column
+    (row) of ``bin_score`` is log-softmaxed over each row (column), and the
+    two are averaged -> log-assignment (B, N + 1, M + 1). The bin column
+    holds the rows' bin scores, the bin row the columns'; the corner is 0.
+    Padded slots are NEG_INF."""
+    b, n, m = sim.shape
+    bin_ = bin_score.to(sim.dtype).expand(b, 1, 1)
+    row_aug = torch.cat([sim, bin_.expand(b, n, 1)], dim=2)
+    col_aug = torch.cat([sim, bin_.expand(b, 1, m)], dim=1)
+    rmask = cmask = None
+    if mask0 is not None or mask1 is not None:
+        m0 = mask0 if mask0 is not None else sim.new_ones((b, n), dtype=torch.bool)
+        m1 = mask1 if mask1 is not None else sim.new_ones((b, m), dtype=torch.bool)
+        pair = m0[:, :, None] & m1[:, None, :]
+        rmask = torch.cat([pair, m0[:, :, None]], dim=2)
+        cmask = torch.cat([pair, m1[:, None, :]], dim=1)
+    scores0 = masked_log_softmax(row_aug, rmask, dim=2)  # (B, N, M + 1)
+    scores1 = masked_log_softmax(col_aug, cmask, dim=1)  # (B, N + 1, M)
+    inner = 0.5 * (scores0[:, :, :m] + scores1[:, :n, :])
+    top = torch.cat([inner, scores0[:, :, m:]], dim=2)
+    bottom = torch.cat([scores1[:, n:, :], sim.new_zeros((b, 1, 1))], dim=2)
+    return torch.cat([top, bottom], dim=1)
 
 
 def log_sinkhorn_iterations(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,

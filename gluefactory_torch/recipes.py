@@ -653,6 +653,93 @@ def eth3d_sp_lg_stage2_conf() -> dict:
     return copy.deepcopy(_ETH3D_SP_LG_STAGE2)
 
 
+# --- GlueStick on points and lines: SuperPoint + LSD wireframe -----------------------
+
+# GlueStick stage 0 and its own SuperPoint (under ['extractor']['point_extractor'])
+GLUESTICK_WEIGHTS = WEIGHTS_PATH / "gluestick_tpu_stage0.f16.msgpack"
+
+
+def _wireframe(max_keypoints: int = 512, threshold: float = 0.0,
+               refinement: bool = False) -> dict:
+    point = {"name": "extractors.superpoint", "max_num_keypoints": max_keypoints,
+             "detection_threshold": threshold, "dense_outputs": True}
+    if refinement:
+        point.update(refinement_radius=2, refinement_mode="com")
+    return {"name": "lines.wireframe", "point_extractor": point,
+            "line_extractor": {"name": "lines.lsd", "max_num_lines": 128, "min_length": 15},
+            "nms_radius": 3.0}
+
+
+def _gluestick_model(**wireframe) -> dict:
+    return {"name": "two_view_pipeline", "extractor": _wireframe(**wireframe),
+            "matcher": {"name": "matchers.gluestick", "filter_threshold": 0.2},
+            "ground_truth": {"name": None}, "run_gt_in_forward": False}
+
+
+_HPATCHES_HYBRID_EVAL = {**_HPATCHES_EVAL, "estimator": "hybrid_ransac"}
+
+
+def hpatches_gluestick_conf() -> dict:
+    """GlueStick stage 0 (``GLUESTICK_WEIGHTS``, 6 layers) on the SuperPoint +
+    LSD wireframe (512 keypoints with the CoM readout, 128 lines) with the
+    refiner on the HPatches benchmark, hybrid RANSAC on the point matches
+    (this benchmark exports no lines): outputs/results/hpatches/
+    gluestick_stage0_com_refine."""
+    conf = {"data": {**_HPATCHES_DATA, "data_dir": "hpatches-sequences-release"},
+            "model": {**_gluestick_model(refinement=True),
+                      "filter": {"name": "matchers.match_refiner"}},
+            "eval": dict(_HPATCHES_HYBRID_EVAL),
+            "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"}
+    return copy.deepcopy(conf)
+
+
+def hpatches_gluestick_famb_conf(refine: bool = True) -> dict:
+    """``hpatches_gluestick_conf`` on famB (``data_dir: hpatches-b``), with the
+    refiner (outputs/results/hpatches/gluestick_famb_com_refine) or without
+    it (gluestick_famb_com)."""
+    conf = hpatches_gluestick_conf()
+    conf["data"]["data_dir"] = "hpatches-b"
+    if not refine:
+        del conf["model"]["filter"]
+    return conf
+
+
+def hpatches_extended_gluestick_conf() -> dict:
+    """GlueStick stage 0 on the wireframe without the CoM readout or the
+    refiner on the extended HPatches benchmark: the matched lines feed
+    hybrid RANSAC; keypoint and line repeatability (3 and 5 px) and line
+    match precision (5 px): outputs/results/hpatches_extended/
+    gluestick_stage0_hybrid."""
+    return copy.deepcopy({
+        "data": dict(_HPATCHES_DATA), "model": _gluestick_model(),
+        "eval": {**_HPATCHES_HYBRID_EVAL, "rep_th_kp": 3.0, "rep_th_line": 5.0,
+                 "line_match_th": 5.0},
+        "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"})
+
+
+def eth3d_gluestick_conf() -> dict:
+    """GlueStick stage 0 on the wireframe on the ETH3D benchmark (points
+    and lines): outputs/results/eth3d/gluestick_stage0."""
+    return copy.deepcopy({"data": dict(_ETH3D_DATA), "model": _gluestick_model(),
+                          "eval": {"correct_th": 0.001},
+                          "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"})
+
+
+def md1500_extended_gluestick_conf() -> dict:
+    """GlueStick stage 0 on the wireframe (1024 keypoints, threshold 0.005)
+    on the extended relative-pose benchmark at 480 pixels: 5-point
+    LO-RANSAC swept over 6 thresholds (2048 hypotheses, 6 LO steps) and the
+    line matches' epipolar precision on 8 samples a line, on the rendered
+    pose set: outputs/results/megadepth1500_extended/gluestick_pose."""
+    data = copy.deepcopy(_POSE_FLAGSHIP["data"])
+    data["preprocessing"]["resize"] = 480
+    return copy.deepcopy({
+        "data": data, "model": _gluestick_model(max_keypoints=1024, threshold=0.005),
+        "eval": {"estimator": "ransac", "ransac_th": -1.0, "num_hypotheses": 2048,
+                 "lo_iters": 6, "line_samples": 8},
+        "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"})
+
+
 # --- SIFT-feature training on the cached-feature engine -----------------------------
 
 LG_SIFT_STAGE1_WEIGHTS = WEIGHTS_PATH / "lg_sift_stage1.f16.msgpack"  # LightGlue stage 1, SIFT

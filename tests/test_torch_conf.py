@@ -21,7 +21,8 @@ torch.set_num_threads(2)
 PORTED = ["extractors.superpoint", "matchers.lightglue", "matchers.homography_matcher",
           "matchers.match_refiner", "two_view_pipeline", "extractors.sift",
           "matchers.superglue", "matchers.nearest_neighbor_matcher", "matchers.adalam",
-          "matchers.depth_matcher", "matchers.oracle_matcher"]
+          "matchers.depth_matcher", "matchers.oracle_matcher", "lines.lsd", "lines.wireframe",
+          "matchers.gluestick"]
 
 
 def _leaves(conf: dict, prefix: str = "") -> dict:
@@ -161,8 +162,8 @@ def test_trainer_refuses_run_benchmarks():
     conf = stage2_conf()
     conf["data"].update(pool_size=1, source_size=[96, 96])
     conf["train"]["load_experiment"] = None  # stage 2's start is not committed
-    conf["train"]["run_benchmarks"] = [{"name": "megadepth1500_extended"}]
-    with pytest.raises(NotImplementedError, match="megadepth1500_extended"):
+    conf["train"]["run_benchmarks"] = [{"name": "hpatches_lines"}]
+    with pytest.raises(NotImplementedError, match="hpatches_lines"):
         Trainer(conf, device="cpu")
     conf["train"]["run_benchmarks"] = [{"name": "hpatches",
                                         "model": {"matcher": {"descriptor_dim": 128}}}]

@@ -94,12 +94,18 @@ def test_robust_evaluation_matches_jax_with_its_minimal_sets(th):
 
 
 def test_line_predictions_are_refused():
-    pred = {**_predictions(0), "lines0": np.zeros((4, 2, 2)), "line_matches0": np.zeros(4)}
+    """Line predictions are no longer refused, now that the line-aware
+    evaluation is ported: the point metrics ignore them, as JAX's do, and
+    point-only RANSAC gives what it gives without them (hybrid RANSAC's use
+    of them is held to JAX by tests/test_torch_lines_eval.py)."""
+    points = _predictions(0)
+    pred = {**points, "lines0": np.zeros((4, 2, 2), np.float32),
+            "lines1": np.zeros((4, 2, 2), np.float32), "line_matches0": np.zeros(4, np.int32)}
     for fn in (port_eval.eval_matches_homography, port_eval.eval_homography_dlt):
-        with pytest.raises(NotImplementedError):
-            fn(DATA, pred, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_eval.eval_homography_robust(DATA, pred, {"ransac_th": 1.0}, device="cpu")
+        assert fn(DATA, pred, device="cpu") == fn(DATA, points, device="cpu")
+    conf = {"ransac_th": 1.0, "num_hypotheses": 64}
+    assert (port_eval.eval_homography_robust(DATA, pred, conf, device="cpu")
+            == port_eval.eval_homography_robust(DATA, points, conf, device="cpu"))
 
 
 def test_auc_and_threshold_choice_match_jax():

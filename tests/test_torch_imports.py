@@ -185,6 +185,26 @@ views = {{f"view{{i}}": {{"image": img[None], "image_size": size}} for i, img in
 assert "adalam_kept" in adalam(views)
 for name in ("matchers.depth_matcher", "matchers.oracle_matcher"):
     build_model(name, device="cpu")
+# the twelfth slice: the port's LSD (host C++), the wireframe, GlueStick,
+# hybrid RANSAC and the extended benchmarks
+from gluefactory_torch.eval import get_benchmark
+
+gs = build_model("two_view_pipeline", {{
+    "extractor": {{"name": "lines.wireframe",
+                  "point_extractor": {{**conf["extractor"], "dense_outputs": True}},
+                  "line_extractor": {{"name": "lines.lsd", "max_num_lines": 16}}}},
+    "matcher": {{"name": "matchers.gluestick", "input_dim": 32, "descriptor_dim": 32,
+                "n_layers": 1, "filter_threshold": 0.0}}}}, device="cpu")
+pred = gs(views)
+assert pred["line_matches0"].shape == (1, 16) and pred["keypoints0"].shape == (1, 80, 2)
+assert int(pred["valid_lines0"].sum()) > 0
+kp = torch.rand(40, 2) * 100
+est = load_estimator("homography", "hybrid_ransac")({{"num_hypotheses": 32}})(
+    {{"m_kpts0": kp, "m_kpts1": kp + 1.0, "m_lines0": kp[:10].reshape(5, 2, 2),
+      "m_lines1": kp[:10].reshape(5, 2, 2) + 1.0}})
+assert est["success"] and est["line_inliers"].shape == (5,)
+for name in ("hpatches_extended", "megadepth1500_extended"):
+    assert get_benchmark(name).__module__.startswith("gluefactory_torch.eval.")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

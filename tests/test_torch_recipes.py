@@ -135,6 +135,26 @@ def test_benchmark_recipe_is_its_conf(recipe):
     assert conf["checkpoint"] is None or (ROOT_PATH / conf["checkpoint"]).exists()
 
 
+# the GlueStick benchmark recipes: (recipe, its arguments, its folder of outputs/results)
+GLUESTICK_BENCHMARKS = [
+    ("hpatches_gluestick_conf", {}, "hpatches/gluestick_stage0_com_refine"),
+    ("hpatches_gluestick_famb_conf", {"refine": True}, "hpatches/gluestick_famb_com_refine"),
+    ("hpatches_gluestick_famb_conf", {"refine": False}, "hpatches/gluestick_famb_com"),
+    ("hpatches_extended_gluestick_conf", {}, "hpatches_extended/gluestick_stage0_hybrid"),
+    ("eth3d_gluestick_conf", {}, "eth3d/gluestick_stage0"),
+    ("md1500_extended_gluestick_conf", {}, "megadepth1500_extended/gluestick_pose"),
+]
+
+
+@pytest.mark.parametrize("recipe,kwargs,folder", GLUESTICK_BENCHMARKS,
+                         ids=[f.split("/")[-1] for _, _, f in GLUESTICK_BENCHMARKS])
+def test_gluestick_recipe_is_its_conf(recipe, kwargs, folder):
+    path = ROOT_PATH / "outputs/results" / folder / "conf.yaml"
+    conf = getattr(R, recipe)(**kwargs)
+    assert conf == yaml.safe_load(path.read_text())
+    assert ROOT_PATH / conf["checkpoint"] == R.GLUESTICK_WEIGHTS and R.GLUESTICK_WEIGHTS.exists()
+
+
 @pytest.mark.parametrize("name", sorted(R.GATE_BOUNDS))
 def test_gate_confs_build_and_load_their_blobs(name):
     """Each JAX gate's pipeline builds and takes its blob strictly (the

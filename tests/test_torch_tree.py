@@ -11,7 +11,8 @@ PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the
 RUNTIME_FILES = ["chip_smoke.py", "weights/lg_tpu_stage2.f16.msgpack",
                  "weights/lg5_init_spsoft.f16.msgpack", "weights/sp_tpu_stage0b.f16.msgpack",
                  "weights/sg_sift_stage1.f16.msgpack", "weights/lg_sift_stage2.f16.msgpack",
-                 "weights/lg_sift_stage1.f16.msgpack", "weights/sp_tpu_stage0.f16.msgpack"]
+                 "weights/lg_sift_stage1.f16.msgpack", "weights/sp_tpu_stage0.f16.msgpack",
+                 "weights/gluestick_tpu_stage0.f16.msgpack"]
 
 
 def _git(*args: str) -> subprocess.CompletedProcess:
@@ -30,15 +31,16 @@ def test_runtime_files_are_tracked(tracked):
     package = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "gluefactory_torch").rglob("*")
                      if p.is_file() and "_build" not in p.parts
                      and "__pycache__" not in p.parts)
-    assert {"gluefactory_torch/csrc/attention.cu",
-            "gluefactory_torch/csrc/elementwise.cu"} <= set(package)
+    assert {"gluefactory_torch/csrc/attention.cu", "gluefactory_torch/csrc/elementwise.cu",
+            "gluefactory_torch/csrc/lsd.cpp"} <= set(package)
     for path in RUNTIME_FILES + package:
         assert path in tracked, f"{path} is read at run time but not tracked"
         assert _git("check-ignore", "-q", path).returncode != 0, f"{path} is gitignored"
 
 
 def test_build_products_are_ignored(tracked):
-    for product in ("libattention_0.so", "libelementwise_0.so", "kernel_probe.json"):
+    for product in ("libattention_0.so", "libelementwise_0.so", "liblsd_0.so",
+                    "kernel_probe.json"):
         assert _git("check-ignore", "-q", f"gluefactory_torch/_build/{product}").returncode == 0
     assert not any(p.startswith("gluefactory_torch/_build/") for p in tracked)
 

@@ -111,12 +111,25 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      allow_no_extract from the cache against the full pipeline; (e) depth ground
      truth (gt_matches_from_pose_depth, depth_matcher, oracle_matcher) on the card
      against the CPU; (f) eval.timing_measurement of the flagship at batch 1 and 8.
- 18. GlueStick stage 0 on the SuperPoint + LSD wireframe (see check_gluestick), 24 K2
+ 18. GlueStick stage 0 on the SuperPoint + LSD wireframe (chip_smoke_gluestick.py), 24 K2
      launches and no K1 a pair, held to the JAX package's summaries on the same sets: (a)
      HPatches famA and famB (phase 8's sets), kernel against plain path, the time by
      stage; (b) HPatches-extended on famA's first 8 sequences; (c) ETH3D on phase 17's
-     set; (d) MegaDepth-1500-extended on phase 10's set; (e) the port's host LSD on the
-     gate views against OpenCV's segments.
+     set; (d) MegaDepth-1500-extended on phase 10's set, its first pairs' 5-point
+     LO-RANSAC on the card against the CPU on the same minimal sets in float64; (e) the
+     port's host LSD on the gate views against OpenCV's segments.
+ 19. GlueStick training at full width (chip_smoke_gluestick.py): (a)
+     recipes.gluestick_cached_conf: the cached-wireframe pool (640 + 64 images at
+     448x448, 256 keypoints, 96 lines; SuperPoint on the card, LSD on the host)
+     against the CPU and its cache, step 0 on the kernel path against the plain
+     path (and with checkpointed layers: 48 K2 launches), train.training cut to 2 epochs
+     of 4 steps with evaluations, the line losses, checkpoint_best and a --restore, 24 K2
+     launches a step; (b)
+     recipes.gluestick_stage1_conf from weights/gluestick_tpu_stage0 on its own pool:
+     step 0 on the card against the CPU, the blob's validation loss below the
+     initialisation's, 3 steps; (c) recipes.gluestick_train_homography_conf: 2 steps
+     of 9 layers on the host dataset with the wireframe in the step (LSD on the host),
+     36 K2 launches a step; K2 timed on a step's inputs of each beside SDPA.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
@@ -1303,12 +1316,15 @@ def _angles(R, t, R_ref, t_ref) -> tuple[float, float]:
     return float(dr), float(np.degrees(2 * np.arcsin(min(1.0, np.linalg.norm(t - t_ref) / 2))))
 
 
-def pose_against_cpu(pipeline, pred_file: Path, th: float, device) -> dict:
-    """Pair 0's RANSAC at ``th`` px on the card and on the CPU from the same
-    2048 minimal sets, through the float32 estimator the benchmark runs
-    (``RelativePoseEstimator``: the pixel threshold over the mean focal
-    length, ``success``) and through ``ransac_essential`` in float64: the
-    degrees between the card's pose and the CPU's, for each."""
+def pose_against_cpu(pipeline, pred_file: Path, th: float, device, n_pairs: int = 1,
+                     dtypes: tuple = ("float64", "float32")) -> dict:
+    """The first ``n_pairs`` pairs' RANSAC at ``th`` px on the card and on the
+    CPU from the same minimal sets (``num_hypotheses`` of them), through the
+    float32 estimator the benchmark runs (``RelativePoseEstimator``: the pixel
+    threshold over the mean focal length, ``success``) and through
+    ``ransac_essential`` in float64: for each of ``dtypes``, a pair's degrees
+    between the card's rotation and the CPU's, and between their
+    translations, for each pair."""
     import torch
 
     from gluefactory_torch.eval.eval_pipeline import unbatch
@@ -1318,35 +1334,39 @@ def pose_against_cpu(pipeline, pred_file: Path, th: float, device) -> dict:
     from gluefactory_torch.robust_estimators.homography.ransac import sample_minimal_sets
     from gluefactory_torch.robust_estimators.relative_pose.ransac import ransac_essential
 
-    batch = next(iter(pipeline.get_dataloader()))
-    data, pred = unbatch(batch), CacheLoader({"path": str(pred_file)})(batch)
-    pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
-                                              pred["matches0"], pred["matching_scores0"])
     conf = {**pipeline.conf["eval"], "ransac_th": th}
-    valid = torch.from_numpy(valid)
-    idx = sample_minimal_sets(valid, conf["num_hypotheses"], torch.Generator().manual_seed(0), 5)
-    f_mean = float(torch.cat([data["camera0"].f, data["camera1"].f]).mean())
-    out = {}
-    for dtype in (torch.float64, torch.float32):
-        poses = []
-        for dev in (device, torch.device("cpu")):
-            if dtype == torch.float64:
-                rays = [data[f"camera{i}"].to(dev, dtype).image2cam(
-                    torch.from_numpy(p).to(dev, dtype)[None])[0] for i, p in enumerate((pts0, pts1))]
-                _, R, t, _, _ = ransac_essential(
-                    *rays, valid.to(dev), th=th / f_mean, num_hypotheses=conf["num_hypotheses"],
-                    lo_iters=conf["lo_iters"], sample_idx=idx.to(dev))
-            else:
-                est = load_estimator("relative_pose", "ransac")(conf)({
-                    "m_kpts0": torch.from_numpy(pts0).to(dev),
-                    "m_kpts1": torch.from_numpy(pts1).to(dev),
-                    "camera0": data["camera0"], "camera1": data["camera1"],
-                    "valid": valid.to(dev), "sample_idx": idx.to(dev)})
-                if not est["success"]:
-                    raise AssertionError(f"pose: pair 0 at {th} px fails on {dev}")
-                R, t = est["M_0to1"].R, est["M_0to1"].t
-            poses += [R, t]
-        out[str(dtype).split(".")[-1]] = _angles(*poses)
+    cache = CacheLoader({"path": str(pred_file)})
+    out = {dtype: [] for dtype in dtypes}
+    for pair, batch in zip(range(n_pairs), pipeline.get_dataloader()):
+        data, pred = unbatch(batch), cache(batch)
+        pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
+                                                  pred["matches0"], pred["matching_scores0"])
+        valid = torch.from_numpy(valid)
+        idx = sample_minimal_sets(valid, conf["num_hypotheses"],
+                                  torch.Generator().manual_seed(0), 5)
+        f_mean = float(torch.cat([data["camera0"].f, data["camera1"].f]).mean())
+        for dtype in dtypes:
+            poses = []
+            for dev in (device, torch.device("cpu")):
+                if dtype == "float64":
+                    rays = [data[f"camera{i}"].to(dev, torch.float64).image2cam(
+                        torch.from_numpy(p).to(dev, torch.float64)[None])[0]
+                        for i, p in enumerate((pts0, pts1))]
+                    _, R, t, _, _ = ransac_essential(
+                        *rays, valid.to(dev), th=th / f_mean,
+                        num_hypotheses=conf["num_hypotheses"], lo_iters=conf["lo_iters"],
+                        sample_idx=idx.to(dev))
+                else:
+                    est = load_estimator("relative_pose", "ransac")(conf)({
+                        "m_kpts0": torch.from_numpy(pts0).to(dev),
+                        "m_kpts1": torch.from_numpy(pts1).to(dev),
+                        "camera0": data["camera0"], "camera1": data["camera1"],
+                        "valid": valid.to(dev), "sample_idx": idx.to(dev)})
+                    if not est["success"]:
+                        raise AssertionError(f"pose: pair {pair} at {th} px fails on {dev}")
+                    R, t = est["M_0to1"].R, est["M_0to1"].t
+                poses += [R, t]
+            out[dtype].append(_angles(*poses))
     return out
 
 
@@ -1408,8 +1428,8 @@ def check_pose(device, root: Path):
         if verdict != "ok":
             failures.append(f"{key}: {float(summaries[key])} against {ref}")
     th = float(summaries["best_ransac_th"])
-    report["against_cpu"] = pose_against_cpu(pipeline, root / "eval" / "predictions.npz", th,
-                                             device)
+    report["against_cpu"] = {k: v[0] for k, v in pose_against_cpu(
+        pipeline, root / "eval" / "predictions.npz", th, device).items()}
     (r64, t64), (r32, t32) = report["against_cpu"]["float64"], report["against_cpu"]["float32"]
     log(f"  pair 0 at {th} px, card against CPU on the same minimal sets, rotation / "
         f"translation: the float32 estimator {r32:.2e} / {t32:.2e} deg, ransac_essential in "
@@ -2345,7 +2365,9 @@ SIFT_POOL_SLOT_SHARE = 1e-3  # (a): slots whose validity may differ
 SIFT_POOL_PX = 1e-3  # (a): each CPU keypoint against the card's at its position
 SIFT_POOL_MIN_DOT = 0.999  # (a): their RootSIFT descriptors (float16), each
 STEP_LAUNCHES = {"lightglue": {"attention_rotary": 12, "attention": 12},
-                      "superglue": {"attention_rotary": 0, "attention": 36}}
+                 "superglue": {"attention_rotary": 0, "attention": 36},
+                 # 6 layers x 4 in the forward; the backward recomputes in PyTorch
+                 "gluestick": {"attention_rotary": 0, "attention": 24}}
 SG_LOSS_RTOL = 1e-4  # (c) step 0, kernel path against plain path
 SG_GRAD_RTOL = 1e-2  # (c): each gradient, of its tensor's largest
 # (c): the key biases' gradients vanish (a bias on the keys adds one constant to a
@@ -2483,7 +2505,7 @@ def train_cut(conf: dict, run: Path, pool, device, matcher: str, tag: str) -> tu
     report = {"steps": len(history), "seconds": seconds, "median_step_ms": step_ms,
               "peak_gib": peak / 2**30, "best_epoch": int(best["epoch"]), "launches": launches,
               "recall": history[-1]["metric/match_recall"]}
-    log(f"  {tag} {len(history)} steps in {seconds:.1f} s (4 evaluations included): losses "
+    log(f"  {tag} {len(history)} steps in {seconds:.1f} s (evaluations included): losses "
         f"{[round(h['loss/total'], 4) for h in history]}; median step {step_ms:.1f} ms "
         f"(steps 2-{len(history)}, host clock); peak memory {report['peak_gib']:.2f} GiB; "
         f"launches {launches} ({STEP_LAUNCHES[matcher]} a step); checkpoint_best epoch "
@@ -3264,274 +3286,6 @@ def check_eth3d(device, root: Path, hpatches_root: Path) -> tuple[dict, dict]:
     return launches, report
 
 
-# --- phase 18: GlueStick on points and lines ---
-
-# The JAX package's summaries of each run on the same port-rendered sets, on the CPU,
-# RANSAC seed 0 (JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_lines_eval.py
-# --root <dir> --render --out <dir>, which renders the sets as phases 8, 10 and 17 do)
-GS_JAX = {
-    "famA": {"H_error_ransac_mAA": 84.143, "mprec@1px": 0.659, "mnum_keypoints": 543.35,
-             "mnum_matches": 89.95},
-    "famB": {"H_error_ransac_mAA": 68.375, "mprec@1px": 0.536, "mnum_keypoints": 568.167,
-             "mnum_matches": 59.8},
-    "famA_extended": {"H_error_ransac_mAA": 55.963, "mline_repeatability": 0.7733,
-                      "mline_match_precision": 0.931, "mnum_line_matches": 52.4},
-    "eth3d": {"AP": 48.91, "AP_lines": 71.13, "mnum_matches": 111.85416666666667},
-    "pose_extended": {"rel_pose_error_mAA": 68.898, "mline_epi_prec@1e-03": 0.8771,
-                      "mnum_line_matches": 37.3},
-}
-# JAX's mAA at RANSAC seeds 0-2: (b) and (d) are held within 1.5 of their range; (d)'s
-# 20 pairs read 61.841-74.116 on the card over seeds 0-4 (PERF.md §2), so (d) holds
-# the card's mean over GS_POSE_SEEDS
-GS_MAA_SEEDS = {"famA_extended": [55.963, 54.736, 55.086],
-                "pose_extended": [68.898, 62.588, 63.481]}
-GS_POSE_SEEDS = (0, 1, 2)
-# the committed outputs/results/<folder>/summaries.json (JAX on its cv2-rendered sets),
-# printed for information only
-GS_COMMITTED = {"famA": ("hpatches/gluestick_stage0_com_refine", 84.353),
-                "famB": ("hpatches/gluestick_famb_com_refine", 87.272),
-                "famA_extended": ("hpatches_extended/gluestick_stage0_hybrid", 62.898),
-                "eth3d": ("eth3d/gluestick_stage0", 46.38),
-                "pose_extended": ("megadepth1500_extended/gluestick_pose", 58.921)}
-# |port - JAX|: points of mAA, AP and AP_lines; shares; relative counts (phase 8's)
-GS_TOLERANCES = {"H_error_ransac_mAA": 1.5, "mprec@1px": 0.02, "mnum_keypoints": 0.01,
-                 "mnum_matches": 0.03, "mline_repeatability": 0.02,
-                 "mline_match_precision": 0.02, "mnum_line_matches": 0.05, "AP": 1.0,
-                 "AP_lines": 1.5, "rel_pose_error_mAA": 1.5, "mline_epi_prec@1e-03": 0.02}
-GS_TOLERANCES_BY_RUN = {"eth3d": {"mnum_matches": 0.02}}
-GS_RELATIVE = ("mnum_keypoints", "mnum_matches", "mnum_line_matches")
-GS_LAUNCHES = 24  # K2 a pair: 6 layers x (2 self + 2 cross); no K1
-GS_EXTENDED_SEQS = 8  # (b) famA's first 8 sequences (40 pairs), for the script's time
-GS_CHECK_PAIRS = 8  # (a) kernel path against plain path, and the time by stage
-GS_AGREE = 0.99  # (a) share of the 8 pairs' matches0 slots, and of line_matches0, equal
-# (e) OpenCV's LSD_REFINE_STD on the gate views (phase 4's renders), computed on the CPU
-# with cv2 (PYTHONPATH=. python tests/test_torch_lsd.py): the segment count, the sum of
-# every endpoint coordinate and the first segment, in pixels rounded to 1e-4
-LSD_CV2 = {
-    "v_qa0/1.ppm": (91, 73070.5056, (264.5522, 167.1157, 321.8227, 177.1726)),
-    "v_qa0/2.ppm": (85, 69303.2081, (265.7674, 158.4650, 328.1102, 168.2195)),
-    "v_qa0/4.ppm": (80, 64187.6617, (384.5081, 69.0039, 348.0100, 71.2866)),
-    "v_qa1/1.ppm": (156, 103025.9790, (379.3747, 190.4298, 461.8750, 190.4506)),
-    "v_qa1/2.ppm": (153, 92483.8593, (478.1455, 194.3613, 396.8557, 195.7111)),
-    "v_qa1/4.ppm": (119, 68268.7463, (395.3625, 221.0442, 478.3652, 234.0979)),
-    "v_qa2/1.ppm": (110, 94792.5526, (394.3741, 243.4114, 343.1209, 243.2592)),
-    "v_qa2/2.ppm": (100, 88535.2626, (357.1640, 258.1378, 354.0707, 328.1668)),
-    "v_qa2/4.ppm": (116, 94335.0603, (433.1324, 225.4596, 366.7918, 222.4717)),
-}
-LSD_SUM_PX = 1e-2  # the coordinate sum; LSD_PX each coordinate of the first segment
-LSD_PX = 1e-3
-
-
-def time_gluestick_stages(model, dataset, device, n_pairs: int) -> dict:
-    """Median ms a pair of each stage over the first ``n_pairs`` of
-    ``dataset`` (stage_calls_ms; the extractor's both views summed)."""
-    import numpy as np
-
-    wireframe = model.extractor
-    ms = stage_calls_ms(model, {"superpoint": wireframe.point_extractor,
-                                "lsd": wireframe.line_extractor, "wireframe": wireframe,
-                                "gluestick": model.matcher, "refiner": model.filter},
-                        dataset, device, n_pairs)
-    views = {k: np.add(ms[k][0::2], ms[k][1::2]) for k in ("superpoint", "lsd", "wireframe")}
-    views["wireframe"] = views["wireframe"] - views["superpoint"] - views["lsd"]
-    out = {f"{k}_ms": float(np.median(v)) for k, v in views.items()}
-    out.update({f"{k}_ms": float(np.median(ms[k])) for k in ("gluestick", "refiner")})
-    return out
-
-
-def hold_gluestick(run: str, summaries: dict, failures: list) -> None:
-    """Log each summary of GS_JAX[run] against the port's and collect the
-    ones outside GS_TOLERANCES (an mAA of GS_MAA_SEEDS against JAX's range
-    over those seeds)."""
-    for key, ref in GS_JAX[run].items():
-        tol = {**GS_TOLERANCES, **GS_TOLERANCES_BY_RUN.get(run, {})}[key]
-        tol = tol * (abs(ref) if key in GS_RELATIVE else 1.0)
-        port = float(summaries[key])
-        seeds = GS_MAA_SEEDS.get(run) if key.endswith("_mAA") else None
-        lo, hi = (min(seeds), max(seeds)) if seeds else (ref, ref)
-        ok = lo - tol <= port <= hi + tol
-        text = (f"port {port:.4f}, JAX {lo:.3f} to {hi:.3f} over seeds 0-2" if seeds
-                else f"port {port:.4f}, JAX {ref:.3f}")
-        log(f"  {run} {key}: {text} on the same set (tolerance {tol:.4f}) "
-            f"{'ok' if ok else 'FAILS'}")
-        if not ok:
-            failures.append(f"{run} {key}: {port} against {ref}")
-    folder, value = GS_COMMITTED[run]
-    log(f"  {run}: {next(iter(GS_JAX[run]))} {value} in the committed {folder}")
-
-
-def run_gluestick(pipeline, model, out: Path, run: str) -> tuple[dict, dict]:
-    """One benchmark run through the kernels: 24 K2 launches a pair and no K1.
-    Returns (summaries, report)."""
-    import numpy as np
-
-    from gluefactory_torch.ops import attention as A
-
-    n_pairs = len(pipeline.dataset)
-    A.reset_launches()
-    t = time.perf_counter()
-    summaries, _ = pipeline.run(out, model=model, overwrite=True)
-    seconds = time.perf_counter() - t
-    counts = dict(A.launches)
-    if counts != {"attention_rotary": 0, "attention": GS_LAUNCHES * n_pairs}:
-        raise AssertionError(f"{run}: launches {counts} for {n_pairs} pairs, expected "
-                             f"{GS_LAUNCHES} K2 and no K1 a pair")
-    forward, sweep = pipeline.timings["forward_ms"], pipeline.timings["ransac_sweep_ms"]
-    sweep_ms = float(np.median(sweep)) if sweep else None
-    report = {"pairs": n_pairs, "seconds": seconds, "pairs_per_s": n_pairs / seconds,
-              "median_forward_ms": float(np.median(forward)), "launches": counts,
-              "median_ransac_sweep_ms": sweep_ms, "summaries": summaries}
-    swept = f", RANSAC sweep {sweep_ms:.1f}" if sweep else ""
-    log(f"  {run}: {n_pairs} pairs in {seconds:.1f} s; median ms a pair: forward "
-        f"{report['median_forward_ms']:.1f}{swept}; launches {counts}")
-    log(f"  {run} summaries: {json.dumps(summaries)}")
-    return summaries, report
-
-
-def check_lsd_host(gate_root: Path) -> dict:
-    """(e) the port's LSD on the gate views on this machine's host, against
-    OpenCV's segments on them (LSD_CV2), timed a view."""
-    import numpy as np
-    import torch
-
-    from gluefactory_torch.models.lines.lsd import detect_segments, grey_u8
-    from gluefactory_torch.utils.image import read_image
-
-    ms, failures = [], []
-    for name, (count, total, first) in LSD_CV2.items():
-        image = torch.from_numpy(read_image(gate_root / name).astype(np.float32) / 255.0)
-        grey = grey_u8(image[None])[0].numpy()
-        t = time.perf_counter()
-        segs = detect_segments(grey)
-        ms.append((time.perf_counter() - t) * 1e3)
-        got = (len(segs), float(segs[:, :4].astype(np.float64).sum()))
-        if (got[0] != count or abs(got[1] - total) > LSD_SUM_PX
-                or np.abs(segs[0, :4] - np.float32(first)).max() > LSD_PX):
-            failures.append(f"{name}: {got[0]} segments, sum {got[1]}, first {segs[0, :4]}; "
-                            f"OpenCV {count}, {total}, {first}")
-    report = {"views": len(LSD_CV2), "median_ms": float(np.median(ms)),
-              "segments": sum(c for c, _, _ in LSD_CV2.values())}
-    log(f"  (e) the host LSD on the {report['views']} gate views against OpenCV's "
-        f"{report['segments']} segments: {'ok' if not failures else 'FAILS'}; median "
-        f"{report['median_ms']:.1f} ms a view")
-    if failures:
-        raise AssertionError(f"LSD against OpenCV on the card's host: {failures}")
-    return report
-
-
-def rescore_pose(conf: dict, pred_file: str, out_dir: str, seed: int, device: str) -> float:
-    """18(d)'s evaluation of ``pred_file`` at RANSAC seed ``seed`` on
-    ``device`` (a spawned process); returns the pose mAA."""
-    import shutil
-
-    import torch
-
-    from gluefactory_torch.core.config import merge
-    from gluefactory_torch.eval.megadepth1500_extended import MegaDepth1500ExtendedPipeline
-
-    torch.set_num_threads(2)
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    shutil.copy(pred_file, out / "predictions.npz")
-    pipeline = MegaDepth1500ExtendedPipeline(merge(conf, {"eval": {"seed": seed}}),
-                                             device=torch.device(device))
-    return float(pipeline.run(out, overwrite_eval=True)[0]["rel_pose_error_mAA"])
-
-
-def check_gluestick(device, root: Path, gate_root: Path) -> tuple[dict, dict]:
-    """Phase 18 (a)-(e) of the module's docstring, each held to GS_JAX. (d)
-    runs first, re-scored at GS_POSE_SEEDS[1:] in spawned processes while (c),
-    (b) and famB run (their times taken beside them). Returns ({path:
-    attention launches}, report)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    import numpy as np
-    import torch
-
-    from gluefactory_torch import recipes
-    from gluefactory_torch.core.config import merge
-    from gluefactory_torch.eval.eth3d import ETH3DPipeline
-    from gluefactory_torch.eval.eval_pipeline import to_model_input
-    from gluefactory_torch.eval.hpatches import HPatchesPipeline
-    from gluefactory_torch.eval.hpatches_extended import HPatchesExtendedPipeline
-    from gluefactory_torch.eval.io import load_model
-    from gluefactory_torch.eval.megadepth1500_extended import MegaDepth1500ExtendedPipeline
-
-    hp, famA = root / "hpatches", str(root / "hpatches" / "famA")
-    report, failures, launches = {}, [], {}
-    runs = [
-        ("pose_extended", MegaDepth1500ExtendedPipeline, recipes.md1500_extended_gluestick_conf(),
-         {"pairs": str(root / "pose" / "pairs_calibrated.txt"),
-          "root": str(root / "pose" / "images")}),
-        ("eth3d", ETH3DPipeline, recipes.eth3d_gluestick_conf(),
-         {"data_dir": str(root / "eth3d" / "set")}),
-        ("famA_extended", HPatchesExtendedPipeline, recipes.hpatches_extended_gluestick_conf(),
-         {"data_dir": famA, "max_seqs": GS_EXTENDED_SEQS}),
-        ("famB", HPatchesPipeline, recipes.hpatches_gluestick_famb_conf(refine=True),
-         {"data_dir": str(hp / "famB")}),
-        ("famA", HPatchesPipeline, recipes.hpatches_gluestick_conf(), {"data_dir": famA}),
-    ]
-    models, rescoring = {}, []
-    pool = ProcessPoolExecutor(len(GS_POSE_SEEDS) - 1,
-                               mp_context=multiprocessing.get_context("spawn"))
-    try:
-        for run, cls, conf, data in runs:
-            conf = merge(conf, {"data": data})
-            key = json.dumps(conf["model"], sort_keys=True)
-            if key not in models:
-                models[key] = load_model(conf["model"], conf["checkpoint"], device)
-            pipeline = cls(conf, device=device)
-            summaries, report[run] = run_gluestick(pipeline, models[key], root / f"gs_{run}",
-                                                   run)
-            launches[f"gluestick_{run}"] = report[run]["launches"]["attention"]
-            if run == "pose_extended":
-                pred = str(root / f"gs_{run}" / "predictions.npz")
-                pose, rescoring = summaries, [
-                    pool.submit(rescore_pose, conf, pred, str(root / f"gs_{run}_seed{seed}"),
-                                seed, str(device)) for seed in GS_POSE_SEEDS[1:]]
-                continue
-            hold_gluestick(run, summaries, failures)
-            if run == "famB":
-                maa = [float(pose["rel_pose_error_mAA"])] + [job.result() for job in rescoring]
-                report["pose_extended"]["maa_by_seed"] = maa
-                log(f"  (d) pose mAA at RANSAC seeds {list(GS_POSE_SEEDS)}: {maa} (JAX's: "
-                    f"{GS_MAA_SEEDS['pose_extended']}); their mean is held")
-                hold_gluestick("pose_extended",
-                               {**pose, "rel_pose_error_mAA": float(np.mean(maa))}, failures)
-            if run == "famA":
-                model, famA_conf, famA_data = models[key], conf, pipeline.dataset
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
-    plain = load_model(merge(famA_conf["model"], {"matcher": {"attention": "xla"}}),
-                       famA_conf["checkpoint"], device)
-    agree = {"matches0": [], "line_matches0": []}
-    for batch in _batches(famA_data, GS_CHECK_PAIRS):
-        data_in = to_model_input(batch, device)
-        with torch.inference_mode():
-            a, b = model(data_in), plain(data_in)
-        for k in agree:
-            agree[k].append(float((a[k] == b[k]).float().mean()))
-    share = {k: float(np.mean(v)) for k, v in agree.items()}  # equal pairs, equal slots
-    log(f"  (a) kernel against plain path, famA's first {GS_CHECK_PAIRS} pairs: slots agree "
-        f"{share} (bound {GS_AGREE}); worst pair {min(agree['matches0']):.4f} / "
-        f"{min(agree['line_matches0']):.4f}")
-    if min(share.values()) < GS_AGREE:
-        failures.append(f"kernel against plain path: {agree}")
-    report["agree"] = agree
-    del plain
-    stages = time_gluestick_stages(model, famA_data, device, GS_CHECK_PAIRS)
-    stages["sweep_ms"] = report["famA"]["median_ransac_sweep_ms"]
-    report["stages"] = stages
-    log(f"  (a) famA's first {GS_CHECK_PAIRS} pairs, each stage synchronised, median ms a "
-        "pair (both views; LSD on the host; the sweep of 6 thresholds x 1024 hypotheses): "
-        + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in stages.items()))
-    report["lsd"] = check_lsd_host(gate_root)
-    if failures:
-        raise AssertionError(f"GlueStick against the JAX package: {failures}")
-    return launches, report
-
-
 def ptxas_usage(log_text: str) -> list[tuple[str, str]]:
     """(kernel, "N registers, spill stores/loads") for each kernel in the
     output of nvcc -Xptxas=-v; the name is the mangled one cut after the
@@ -3667,11 +3421,19 @@ def main() -> int:
         eth3d_launches, _ = check_eth3d(device, Path(tmp) / "eth3d", Path(tmp) / "hpatches")
         log(f"  phase 17 took {time.perf_counter() - t:.1f} s")
 
+        from chip_smoke_gluestick import check_gluestick, check_gluestick_training
+
         log("phase 18: GlueStick on points and lines at full width (the port's LSD, the "
             "wireframe, hybrid RANSAC)")
         t = time.perf_counter()
         gs_launches, _ = check_gluestick(device, Path(tmp), Path(tmp) / "gate")
         log(f"  phase 18 took {time.perf_counter() - t:.1f} s")
+
+        log("phase 19: GlueStick training at full width (the cached-wireframe engine, the "
+            "line ground truth, the three recipes)")
+        t = time.perf_counter()
+        gs_train_launches, gs_train = check_gluestick_training(device, Path(tmp) / "gs_train")
+        log(f"  phase 19 took {time.perf_counter() - t:.1f} s")
 
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
@@ -3702,12 +3464,12 @@ def main() -> int:
                          for path, counts in sift_train_launches.items()},
                       **{path: counts["attention"]
                          for path, counts in eth3d_launches.items()},
-                      **gs_launches},
+                      **gs_launches, **gs_train_launches},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:
         if r["name"] == "attention":
-            r["times_by_shape"].append(sift_train["k2"])
+            r["times_by_shape"] += [sift_train["k2"], *gs_train["k2"]]
         r["launches"] = sum(by_path[r["name"]].values())
         r["launches_by_path"] = by_path[r["name"]]
         if r["name"] in grad_errs:
@@ -3722,4 +3484,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # chip_smoke_gluestick imports this module's helpers: one module, not a second copy
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     sys.exit(main())

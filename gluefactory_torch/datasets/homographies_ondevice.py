@@ -23,7 +23,9 @@ an extractor's features of the pool instead of its images: extracted once
 on the card, cached as ``.npz`` under ``DATA_PATH/engine_pool_cache`` (the
 JAX package's file name and layout, so each package reads the other's),
 and each step warps the keypoints by the two homographies and perturbs the
-descriptors, so a step runs only the matcher."""
+descriptors, so a step runs only the matcher. ``OnDeviceCachedWireframeDataset``
+(``homographies_ondevice_cached_wireframe``) does the same with GlueStick's
+wireframe: nodes, descriptors and line segments."""
 
 from __future__ import annotations
 
@@ -441,13 +443,19 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
     def pool_cache_path(self, split: str) -> Path | None:
         """``DATA_PATH/engine_pool_cache/<class>_<hash>.npz``: the hash is the
         JAX package's, over the same keys of the conf serialised alike, so
-        one conf names one file in both packages."""
+        one conf names one file in both packages; where the JAX worker would
+        load other parameters from the conf's blob (``remap_is_ports_own``),
+        the hash takes the port's remap rule too and the name is the port's."""
+        from ..scripts.extract_pool_features import PARAMS_SCOPE, remap_is_ports_own
+
         if not self.conf.get("pool_cache", True):
             return None
         keys = ["pool_size", "val_pool_size", "source_size", "seed", "data_dir", "glob",
                 "max_gt_points", "features_from"]
         spec = {k: self.conf.get(k) for k in keys}
         spec["split"] = split
+        if remap_is_ports_own(self.conf.get("features_from") or {}):
+            spec["remap_after"] = PARAMS_SCOPE
         digest = hashlib.sha1(json.dumps(spec, sort_keys=True, default=str).encode())
         folder = settings.DATA_PATH / "engine_pool_cache"
         folder.mkdir(parents=True, exist_ok=True)
@@ -523,17 +531,12 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
                 "d0": uniform(bsz, k), "d1": uniform(bsz, k),
                 "j0": normal(bsz, k, 2), "j1": normal(bsz, k, 2)}
 
-    def make_batch_from_draws(self, pool: dict, draws: dict) -> dict:
-        """A batch of two views, each with its features under ``cache``, from
-        the pool (tensors on the device) and draws."""
+    def homographies(self, draws: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(H0, H1) from the source to each view's canvas; ``right_only``
+        scales H0's difficulty and angle by 0.3."""
         conf = self.conf
         s = int(conf["image_size"])
         ws, hs = (int(float(x)) for x in conf["source_size"])
-        idx = draws["idx"]
-        bsz = idx.shape[0]
-        kp_src = pool["keypoints"][idx]
-        desc = pool["descriptors"][idx].float()
-        scores, kv = pool["keypoint_scores"][idx], pool["keypoint_valid"][idx]
         hconf = conf["homography"]
         mild = 0.3 if conf["right_only"] else 1.0
         H0, _ = homography_from_draws(
@@ -542,20 +545,40 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
         H1, _ = homography_from_draws(
             draws["h1"], (ws, hs), (s, s), difficulty=float(hconf["difficulty"]),
             translation=float(hconf["translation"]), max_angle=float(hconf["max_angle"]))
-        kp_noise = float(conf["kp_noise"])
+        return H0, H1
+
+    def inside(self, pts: torch.Tensor) -> torch.Tensor:
+        """Where points (..., 2) lie on the canvas."""
+        s = float(self.conf["image_size"]) - 1.0
+        return (pts[..., 0] >= 0.0) & (pts[..., 0] <= s) & (pts[..., 1] >= 0.0) & (pts[..., 1] <= s)
+
+    def perturbed(self, desc: torch.Tensor, draws: dict, i: int):
+        """View i's descriptors with the noise, renormalised, and its dropped
+        keypoints (a uniform below ``desc_dropout``)."""
+        d = desc + float(self.conf["desc_noise"]) * draws[f"n{i}"]
+        d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-8)
+        return d, draws[f"d{i}"] < float(self.conf["desc_dropout"])
+
+    def make_batch_from_draws(self, pool: dict, draws: dict) -> dict:
+        """A batch of two views, each with its features under ``cache``, from
+        the pool (tensors on the device) and draws."""
+        s = float(self.conf["image_size"])
+        idx = draws["idx"]
+        bsz = idx.shape[0]
+        kp_src = pool["keypoints"][idx]
+        desc = pool["descriptors"][idx].float()
+        scores, kv = pool["keypoint_scores"][idx], pool["keypoint_valid"][idx]
+        H0, H1 = self.homographies(draws)
+        kp_noise = float(self.conf["kp_noise"])
 
         def view(H, i):
             kp = warp_points(kp_src, H)
             if kp_noise > 0:
                 kp = kp + kp_noise * draws[f"j{i}"]
-            inside = ((kp[..., 0] >= 0.0) & (kp[..., 0] <= s - 1.0)
-                      & (kp[..., 1] >= 0.0) & (kp[..., 1] <= s - 1.0))
-            d = desc + float(conf["desc_noise"]) * draws[f"n{i}"]
-            d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-8)
-            drop = draws[f"d{i}"] < float(conf["desc_dropout"])
+            d, drop = self.perturbed(desc, draws, i)
             return {"cache": {"keypoints": kp, "descriptors": d, "keypoint_scores": scores,
-                              "keypoint_valid": kv & inside & ~drop},
-                    "image_size": torch.full((bsz, 2), float(s), device=kp.device)}
+                              "keypoint_valid": kv & self.inside(kp) & ~drop},
+                    "image_size": torch.full((bsz, 2), s, device=kp.device)}
 
         return {"view0": view(H0, 0), "view1": view(H1, 1),
                 "H_0to1": H1 @ torch.linalg.inv(H0)}
@@ -563,6 +586,72 @@ class OnDeviceCachedFeatureDataset(OnDeviceHomographyDataset):
     def make_batch(self, pool: dict, seed: int, split: str = "train") -> dict:
         generator = torch.Generator(device=pool["keypoints"].device).manual_seed(int(seed))
         return self.make_batch_from_draws(pool, self.batch_draws(generator, pool, split))
+
+
+class OnDeviceCachedWireframeDataset(OnDeviceCachedFeatureDataset):
+    """The cached-wireframe engine (``homographies_ondevice_cached_wireframe``),
+    GlueStick's: the pool holds the wireframe of each source image (junction
+    and keypoint nodes with their descriptors, line segments, their scores,
+    validity and ``lines_junc_idx``), extracted once ``on_host`` (SuperPoint
+    on the engine's device, LSD on the host); each step warps the node
+    positions and the line endpoints by the two homographies (the junction
+    graph is the same in every view) and perturbs the node descriptors as
+    the cached engine does, without keypoint jitter. A line stays valid only
+    where both endpoints lie on the canvas and both its junction nodes
+    survive the crop and the dropout: a ground-truth match on a line whose
+    junction is masked would read the mask's log-probability."""
+
+    default_conf: ClassVar[dict] = {
+        "name": "homographies_ondevice_cached_wireframe",
+        "features_from": {
+            "name": "lines.wireframe",
+            "on_host": True,  # LSD runs on the host
+            "batch": 8,
+            "experiment": None,
+            "weights": None,  # e.g. sp_tpu_stage0b.f16.msgpack
+            "remap": "['extractor']=['point_extractor']",
+            "point_extractor": {"name": "extractors.superpoint", "max_num_keypoints": 256,
+                                "detection_threshold": 0.0005, "dense_outputs": True,
+                                "trainable": False},
+            "line_extractor": {"name": "lines.lsd", "max_num_lines": 96},
+            "nms_radius": 3.0,
+        },
+    }
+
+    def batch_draws(self, generator: torch.Generator, pool: dict, split: str = "train") -> dict:
+        """The cached engine's draws without the keypoint jitters, in JAX's
+        order: pool indices, the two homographies, the two descriptor noises
+        and the two dropout uniforms."""
+        draws = super().batch_draws(generator, pool, split)
+        return {k: v for k, v in draws.items() if k not in ("j0", "j1")}
+
+    def make_batch_from_draws(self, pool: dict, draws: dict) -> dict:
+        s = float(self.conf["image_size"])
+        idx = draws["idx"]
+        kp_src = pool["keypoints"][idx]  # (B, N, 2): junctions, then keypoints
+        desc = pool["descriptors"][idx].float()
+        scores, kv = pool["keypoint_scores"][idx], pool["keypoint_valid"][idx]
+        lines_src, line_scores = pool["lines"][idx], pool["line_scores"][idx]  # (B, L, 2, 2)
+        lv, junc_idx = pool["valid_lines"][idx], pool["lines_junc_idx"][idx]  # (B, 2L)
+        b, n_lines = lines_src.shape[:2]
+        H0, H1 = self.homographies(draws)
+
+        def view(H, i):
+            kp = warp_points(kp_src, H)
+            ends = warp_points(lines_src.reshape(b, 2 * n_lines, 2), H)
+            d, drop = self.perturbed(desc, draws, i)
+            node_valid = kv & self.inside(kp) & ~drop
+            ends_in = self.inside(ends).reshape(b, n_lines, 2).all(-1)
+            junc_ok = node_valid.gather(1, junc_idx.long()).reshape(b, n_lines, 2).all(-1)
+            return {"cache": {"keypoints": kp, "descriptors": d, "keypoint_scores": scores,
+                              "keypoint_valid": node_valid,
+                              "lines": ends.reshape(b, n_lines, 2, 2),
+                              "line_scores": line_scores, "valid_lines": lv & ends_in & junc_ok,
+                              "lines_junc_idx": junc_idx},
+                    "image_size": torch.full((b, 2), s, device=kp.device)}
+
+        return {"view0": view(H0, 0), "view1": view(H1, 1),
+                "H_0to1": H1 @ torch.linalg.inv(H0)}
 
 
 def upload_pool(pool: dict, device: str | torch.device) -> dict:

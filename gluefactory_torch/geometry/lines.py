@@ -1,12 +1,26 @@
-"""Batched distances between line segments (gluefactory_tpu/geometry/lines.py,
-its distance half): point-to-segment and point-to-line distances, the
-orthogonal and structural segment distances, the overlap of a segment with
-another's line and points sampled along segments. Segments are (..., L, 2,
-2) endpoints; pairwise results are (..., L0, L1)."""
+"""Batched distances between line segments and the ground-truth line matches
+(gluefactory_tpu/geometry/lines.py): point-to-segment and point-to-line
+distances, the orthogonal and structural segment distances, the overlap of a
+segment with another's line, points sampled along segments, and the line
+ground truth of a homography or of depth maps and a relative pose. Segments
+are (..., L, 2, 2) endpoints; pairwise results are (..., L0, L1).
+
+The ground truth samples points along each segment of view 0, carries them
+into view 1, and matches segments by the mean distance of those points to
+each segment of view 1, gated by the overlap of the carried segment with it;
+a pair is matched where each is the other's cheapest (the first index on
+ties, as JAX's ``argmin``) and the cost is below ``dist_th``. Codes: the
+matched index, ``UNMATCHED`` (-1) or ``IGNORE`` (-2) for an invalid segment
+(with depth, also one whose samples are mostly not seen in view 1)."""
 
 from __future__ import annotations
 
 import torch
+
+from .homography import warp_points
+
+UNMATCHED = -1
+IGNORE = -2
 
 
 def point_to_seg_dist(points: torch.Tensor, segs: torch.Tensor) -> torch.Tensor:
@@ -73,3 +87,85 @@ def sample_points_on_lines(lines: torch.Tensor, n_samples: int) -> torch.Tensor:
     a = lines[..., 0, :][..., None, :]
     b = lines[..., 1, :][..., None, :]
     return a + t[:, None] * (b - a)
+
+
+def _greedy_mutual_assignment(cost: torch.Tensor, valid_pair: torch.Tensor, th: float):
+    """Mutual-min assignment of (..., L0, L1) costs over the valid pairs:
+    (pos0, pos1, arg0, arg1), where arg0 (arg1) is each row's (column's)
+    cheapest column (row), the first on ties and 0 on a row without a valid
+    pair, and pos0 (pos1) holds where that choice is mutual and cheaper than
+    ``th``."""
+    c = cost.masked_fill(~valid_pair, float("inf"))
+    l0, l1 = c.shape[-2], c.shape[-1]
+    min0, arg0 = c.min(dim=-1)
+    min1, arg1 = c.min(dim=-2)
+    mutual0 = arg1.gather(-1, arg0) == torch.arange(l0, device=c.device)
+    mutual1 = arg0.gather(-1, arg1) == torch.arange(l1, device=c.device)
+    return mutual0 & (min0 < th), mutual1 & (min1 < th), arg0, arg1
+
+
+def _codes(pos0, pos1, arg0, arg1, known0, valid1) -> dict:
+    """The match codes of both views and the (..., L0, L1) assignment."""
+    l1 = pos1.shape[-1]
+    unmatched = torch.tensor(UNMATCHED, device=arg0.device)
+    ignore = torch.tensor(IGNORE, device=arg0.device)
+    m0 = torch.where(pos0, arg0, torch.where(known0, unmatched, ignore))
+    m1 = torch.where(pos1, arg1, torch.where(valid1, unmatched, ignore))
+    assignment = (pos0[..., :, None] & (torch.arange(l1, device=arg0.device) == arg0[..., :, None])
+                  & pos1[..., None, :])
+    return {"line_matches0": m0.to(torch.int32), "line_matches1": m1.to(torch.int32),
+            "line_assignment": assignment}
+
+
+def gt_line_matches_from_pose_depth(lines0, lines1, valid0, valid1, depth0, depth1, camera0,
+                                    camera1, T_0to1, n_samples: int = 16, dist_th: float = 5.0,
+                                    overlap_th: float = 0.2, min_visible: float = 0.5) -> dict:
+    """Line ground truth from depth maps and a relative pose: ``n_samples``
+    points along each segment of view 0 lifted by ``depth0`` and projected
+    into view 1 (kept where ``depth1`` agrees within 5%); a segment with
+    fewer than ``min_visible`` of its samples kept is IGNORE. The cost is
+    the mean distance of the kept samples to a segment of view 1; the
+    overlap gate takes the span from the first kept sample to the last."""
+    from .depth import project, sample_depth
+
+    b, l0 = lines0.shape[:2]
+    l1 = lines1.shape[1]
+    pts0 = sample_points_on_lines(lines0, n_samples).reshape(b, l0 * n_samples, 2)
+    d0, dvalid = sample_depth(pts0, depth0)
+    pts0_in1, pvalid = project(pts0, d0, depth1, camera0, camera1, T_0to1, dvalid, ccth=0.05)
+    pvalid = pvalid.reshape(b, l0, n_samples)
+    pts0_in1 = pts0_in1.reshape(b, l0, n_samples, 2)
+    visible0 = (pvalid.float().mean(dim=-1) >= min_visible) & valid0
+    d = point_to_seg_dist(pts0_in1.reshape(b, l0 * n_samples, 2), lines1)
+    d = d.reshape(b, l0, n_samples, l1)
+    w = pvalid[..., None].to(d.dtype)
+    mean_d = (d * w).sum(dim=2) / w.sum(dim=2).clamp_min(1.0)
+    # the first and last kept sample (argmax takes the first maximum, 0 if none)
+    kept = pvalid.to(torch.uint8)
+    first = kept.argmax(dim=-1)
+    last = n_samples - 1 - kept.flip(-1).argmax(dim=-1)
+
+    def at(idx):
+        return pts0_in1.gather(2, idx[..., None, None].expand(-1, -1, 1, 2))[:, :, 0]
+
+    ov = overlap_fraction(torch.stack([at(first), at(last)], dim=-2), lines1)
+    valid_pair = visible0[..., :, None] & valid1[..., None, :] & (ov > overlap_th)
+    return _codes(*_greedy_mutual_assignment(mean_d, valid_pair, dist_th), visible0, valid1)
+
+
+def gt_line_matches_from_homography(lines0, lines1, valid0, valid1, H_0to1,
+                                    n_samples: int = 16, dist_th: float = 5.0,
+                                    overlap_th: float = 0.2) -> dict:
+    """Line ground truth from a homography: ``n_samples`` points along each
+    segment of view 0 warped into view 1; the cost is their mean distance to
+    a segment of view 1, the overlap gate that of the warped segment."""
+    b, l0 = lines0.shape[:2]
+    l1 = lines1.shape[1]
+    pts0 = sample_points_on_lines(lines0, n_samples)
+    pts0_in1 = warp_points(pts0.reshape(b, -1, 2), H_0to1).reshape(b, l0, n_samples, 2)
+    d = point_to_seg_dist(pts0_in1.reshape(b, l0 * n_samples, 2), lines1)
+    cost = d.reshape(b, l0, n_samples, l1).mean(dim=2)
+    warped = torch.stack([pts0_in1[..., 0, :], pts0_in1[..., -1, :]], dim=-2)
+    ov = overlap_fraction(warped, lines1)
+    valid_pair = valid0[..., :, None] & valid1[..., None, :] & (ov > overlap_th)
+    return _codes(*_greedy_mutual_assignment(cost, valid_pair, dist_th), valid0, valid1)

@@ -9,12 +9,16 @@ wrapper's weighted sum, as XLA fuses it) and uint8 (``clip(x * 255)``,
 truncated); segments shorter than ``min_length`` are dropped, each scored
 sqrt(length), ordered by ``np.argsort(-scores)`` and cut to
 ``max_num_lines`` slots with a ``valid_lines`` mask. The detector runs on
-the host whatever the model's device; its outputs go to the image's
-device. ``describe: 'lbd'`` (LBD descriptors) is not ported."""
+the host whatever the model's device, the images of a batch on threads (the
+C++ call releases the GIL; each image's segments and their order are its
+own); its outputs go to the image's device. ``describe: 'lbd'`` (LBD
+descriptors) is not ported."""
 
 from __future__ import annotations
 
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import ClassVar
 
 import numpy as np
@@ -96,7 +100,10 @@ class LSD(BaseModel):
     def _forward(self, data: dict) -> dict:
         image = data["image"]
         m, min_length = int(self.conf["max_num_lines"]), float(self.conf["min_length"])
-        outs = [detect_lsd_np(im, m, min_length) for im in grey_u8(image).cpu().numpy()]
+        greys = grey_u8(image).cpu().numpy()
+        _library()  # built and loaded before the threads start
+        with ThreadPoolExecutor(max(1, min(len(greys), os.cpu_count() or 1))) as pool:
+            outs = list(pool.map(lambda grey: detect_lsd_np(grey, m, min_length), greys))
         return {key: torch.from_numpy(np.stack([o[j] for o in outs])).to(image.device)
                 for j, key in enumerate(("lines", "line_scores", "valid_lines"))}
 

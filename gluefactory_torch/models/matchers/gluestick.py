@@ -18,21 +18,31 @@ are the flax ones (``self_{i}``/``cross_{i}`` with ``q``/``k``/``v``/``out``
 and ``mlp.dense_*``/``norm_*``, ``line_{i}.mlp``, ``kenc``, ``lenc``,
 ``input_proj``, ``final_proj``, ``final_line_proj``,
 ``inter_line_proj_{i}``, ``bin_score``, ``line_bin_score``), so
-``utils/weights`` loads a committed blob by name. The loss and
-``checkpointed`` (rematerialised layers) belong to training and are not
-ported."""
+``utils/weights`` loads a committed blob by name.
+
+The loss is JAX's: the point NLL of the log-assignment (weighted by
+``loss.nll_weight``) and, with line ground truth in the data, the line NLL
+of ``line_log_assignment`` (``line_nll_weight``) and of each
+inter-supervision head (``line_nll_{i}``, ``inter_weight``).
+``checkpointed`` recomputes each attention and line layer in the backward
+pass (``torch.utils.checkpoint``, JAX's ``nn.remat``): the kernel's
+autograd function then runs each layer's four K2 launches again."""
 
 from __future__ import annotations
 
+from functools import partial
 from typing import ClassVar
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.assignment import NEG_INF, filter_matches, log_double_softmax
 from ...ops.attention import attention
 from ..base_model import BaseModel
+from ..utils.losses import nll_loss
+from ..utils.metrics import matcher_metrics
 from .lightglue import Dense
 from .superglue import MLP
 
@@ -115,7 +125,6 @@ class GlueStick(BaseModel):
         "attention": None,  # 'xla' = plain PyTorch; None/'auto'/'pallas' = kernel K2
         "loss": {"nll_weight": 1.0, "line_nll_weight": 1.0, "inter_weight": 0.5},
     }
-    unported_conf: ClassVar[frozenset] = frozenset({"checkpointed", "loss"})
     required_data_keys: ClassVar[list] = [
         "keypoints0", "keypoints1", "descriptors0", "descriptors1",
         "lines0", "lines1", "lines_junc_idx0", "lines_junc_idx1"]
@@ -183,9 +192,14 @@ class GlueStick(BaseModel):
             data["lines1"].shape[:2], dtype=torch.bool)
         scale = conf["descriptor_dim"] ** 0.5
         inter_preds = {}
+        remat = conf["checkpointed"] and torch.is_grad_enabled()
+
+        def run(layer, *args):
+            return checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+
         for i in range(conf["n_layers"]):
-            self_layer, cross_layer = getattr(self, f"self_{i}"), getattr(self, f"cross_{i}")
-            line_layer = getattr(self, f"line_{i}")
+            self_layer, line_layer, cross_layer = (partial(run, getattr(self, f"{kind}_{i}"))
+                                                   for kind in ("self", "line", "cross"))
             desc0 = self_layer(desc0, desc0, mask0)
             desc1 = self_layer(desc1, desc1, mask1)
             desc0 = line_layer(desc0, lenc0, idx0, vl0)
@@ -242,7 +256,25 @@ class GlueStick(BaseModel):
         }
 
     def loss(self, pred: dict, data: dict):
-        raise NotImplementedError("GlueStick's loss belongs to its training, not yet ported")
+        """(losses, metrics): ``assignment_nll``, ``nll_pos``, ``nll_neg``,
+        with line ground truth ``line_nll`` and ``line_nll_{i}``, and their
+        weighted sum ``total``, each (B,); the point matches' metrics."""
+        conf = self.conf["loss"]
+        total_pt, nll_pos, nll_neg = nll_loss(pred["log_assignment"], data["gt_matches0"],
+                                              data["gt_matches1"])
+        losses = {"assignment_nll": total_pt, "nll_pos": nll_pos, "nll_neg": nll_neg}
+        total = conf["nll_weight"] * total_pt
+        if "gt_line_matches0" in data:
+            gt0, gt1 = data["gt_line_matches0"], data["gt_line_matches1"]
+            losses["line_nll"] = nll_loss(pred["line_log_assignment"], gt0, gt1)[0]
+            total = total + conf["line_nll_weight"] * losses["line_nll"]
+            for i in self.inter_layers:
+                key = f"line_{i}_log_assignment"
+                if key in pred:
+                    losses[f"line_nll_{i}"] = nll_loss(pred[key], gt0, gt1)[0]
+                    total = total + conf["inter_weight"] * losses[f"line_nll_{i}"]
+        losses["total"] = total
+        return losses, matcher_metrics(pred, data)
 
 
 __main_model__ = GlueStick

@@ -18,11 +18,20 @@ import torch
 TRUNCATED_STD = 0.87962566103423978
 
 
+# the unit normal's CDF at -2 and 2, the bounds of the uniform draw (as 2 CDF - 1)
+_CDF_BOUND = math.erf(2.0 / math.sqrt(2.0))
+
+
 def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
     """Fill a PyTorch weight ((out, in) or (out, in, kh, kw); fan_in is the
-    size of one output's slice) in place as flax's ``lecun_normal``."""
+    size of one output's slice) in place as flax's ``lecun_normal``, drawn as
+    ``jax.random.truncated_normal`` draws: the inverse CDF of a uniform
+    between the bounds' CDFs, clipped to the bounds (one pass, where
+    rejection sampling redraws the tensor until every value falls inside)."""
     std = 1.0 / math.sqrt(weight[0].numel()) / TRUNCATED_STD
-    return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+    with torch.no_grad():
+        weight.uniform_(-_CDF_BOUND, _CDF_BOUND).erfinv_().mul_(std * math.sqrt(2.0))
+        return weight.clamp_(-2.0 * std, 2.0 * std)
 
 
 def flax_reset_(layer: torch.nn.Module) -> None:

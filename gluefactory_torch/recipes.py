@@ -740,6 +740,115 @@ def md1500_extended_gluestick_conf() -> dict:
         "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"})
 
 
+# --- GlueStick training ------------------------------------------------------------
+
+_GLUESTICK_CACHED = {  # gluefactory_tpu/configs/gluestick_cached.yaml
+    "data": {
+        "name": "homographies_ondevice_cached_wireframe",
+        "pool_size": 640,
+        "val_pool_size": 64,
+        "source_size": [448, 448],
+        "image_size": 320,
+        "train_batch_size": 16,
+        "val_batch_size": 16,
+        "steps_per_epoch": 250,
+        "val_steps": 4,
+        "features_from": {
+            "name": "lines.wireframe", "on_host": True, "batch": 8,
+            "weights": "sp_tpu_stage0b.f16.msgpack",
+            "remap": "['extractor']=['point_extractor']",
+            "point_extractor": {"name": "extractors.superpoint", "max_num_keypoints": 256,
+                                "detection_threshold": 0.0005, "nms_radius": 4,
+                                "dense_outputs": True, "trainable": False},
+            "line_extractor": {"name": "lines.lsd", "max_num_lines": 96},
+            "nms_radius": 3.0,
+        },
+        "desc_noise": 0.03,
+        "desc_dropout": 0.05,
+        "homography": {"difficulty": 0.7, "translation": 0.3, "max_angle": 45.0},
+    },
+    "model": {
+        "name": "two_view_pipeline",
+        "extractor": {"name": None},
+        "allow_no_extract": True,
+        "matcher": {"name": "matchers.gluestick", "input_dim": 256, "descriptor_dim": 256,
+                    "n_layers": 6, "checkpointed": False, "inter_supervision": [2, 4]},
+        "ground_truth": {"name": "matchers.homography_matcher", "use_lines": True,
+                         "th_positive": 3.0, "th_negative": 6.0, "line_dist_th": 5.0},
+        "run_gt_in_forward": True,
+    },
+    "train": {
+        "seed": 7,
+        "epochs": 32,
+        "optimizer": "adam",
+        "lr": 0.0001,
+        "lr_schedule": {"type": "exp", "start": 3000, "exp_div_10": 8000},
+        "eval_every_iter": 250,
+        "save_every_iter": 2000,
+        "log_every_iter": 50,
+        "keep_last_checkpoints": 3,
+        "clip_grad": 1.0,
+        "best_key": "loss/total",
+    },
+}
+
+
+def gluestick_cached_conf() -> dict:
+    """``gluestick_cached.yaml``: GlueStick (6 layers, inter-supervision at
+    layers 2 and 4) trained from its initialisation on the cached-wireframe
+    engine (640 + 64 images at 448x448; SuperPoint from
+    ``SP_STAGE0B_WEIGHTS`` with 256 keypoints, LSD with 96 lines, extracted
+    once ``on_host``) against the homography's point and line ground truth;
+    the recipe of ``gluestick_tpu_stage0`` (``GLUESTICK_WEIGHTS``)."""
+    return copy.deepcopy(_GLUESTICK_CACHED)
+
+
+def gluestick_stage1_conf() -> dict:
+    """``gluestick_stage1.yaml``: stage 0 continued on a denser pool (384
+    keypoints, 128 lines) with harder homographies at a decayed rate. Its
+    ``load_experiment``, the run ``gluestick_tpu_stage0``, is not committed:
+    the recipe starts from that run's export, ``GLUESTICK_WEIGHTS`` (its
+    extractor half is dropped for the matcher-only model)."""
+    conf = gluestick_cached_conf()
+    conf["data"].update(desc_noise=0.02, desc_dropout=0.03,
+                        homography={"difficulty": 0.8, "translation": 0.35, "max_angle": 60.0})
+    conf["data"]["features_from"]["point_extractor"]["max_num_keypoints"] = 384
+    conf["data"]["features_from"]["line_extractor"]["max_num_lines"] = 128
+    conf["train"].update(seed=17, lr=3.0e-5,
+                         lr_schedule={"type": "exp", "start": 2000, "exp_div_10": 8000},
+                         load_experiment="weights/gluestick_tpu_stage0.f16.msgpack")
+    return conf
+
+
+def gluestick_train_homography_conf() -> dict:
+    """``gluestick_train_homography.yaml``: GlueStick at its default 9 layers
+    on the host homography dataset (synthetic scenes, 320x320 views, 8
+    loader processes, batch 8) with a frozen SuperPoint + LSD wireframe (512
+    keypoints at threshold 0, 128 lines) in the step, against the point
+    ground truth only. The YAML gives the wireframe's SuperPoint no
+    weights."""
+    return {
+        "data": {"name": "homographies", "synthetic": True, "image_size": 320,
+                 "train_batch_size": 8, "num_workers": 8},
+        "model": {
+            "name": "two_view_pipeline",
+            "extractor": {
+                "name": "lines.wireframe",
+                "point_extractor": {"name": "extractors.superpoint", "max_num_keypoints": 512,
+                                    "detection_threshold": 0.0, "dense_outputs": True,
+                                    "trainable": False},
+                "line_extractor": {"name": "lines.lsd", "max_num_lines": 128},
+                "trainable": False,
+            },
+            "matcher": {"name": "matchers.gluestick"},
+            "ground_truth": {"name": "matchers.homography_matcher"},
+            "run_gt_in_forward": True,
+        },
+        "train": {"seed": 0, "epochs": 20, "lr": 1.0e-4, "log_every_iter": 100,
+                  "eval_every_iter": 1000},
+    }
+
+
 # --- SIFT-feature training on the cached-feature engine -----------------------------
 
 LG_SIFT_STAGE1_WEIGHTS = WEIGHTS_PATH / "lg_sift_stage1.f16.msgpack"  # LightGlue stage 1, SIFT

@@ -35,6 +35,37 @@ from ..utils.experiments import load_experiment, require_restored, restore_from_
 from ..utils.weights import load_weight_blob
 
 
+PARAMS_SCOPE = "['params']"  # begins every key of a weights blob
+
+
+def remap_keys(flat: dict, remap: str) -> dict:
+    """The entries of ``flat`` whose key starts with OLD, or with OLD after
+    its ``['params']`` scope, that prefix rewritten to NEW (``remap`` is
+    ``OLD=NEW``). The JAX worker takes only the first form, so the recipes'
+    ``['extractor']=['point_extractor']`` matches no key of a committed blob
+    there and its extractor keeps its initialisation (with a warning a
+    parameter); here it loads the blob's extractor, as the recipes name it
+    (``remap_is_ports_own``)."""
+    old, new = remap.split("=", 1)
+    out = {}
+    for key, value in flat.items():
+        if key.startswith(old):
+            out[new + key[len(old):]] = value
+        elif key.startswith(PARAMS_SCOPE + old):
+            out[PARAMS_SCOPE + new + key[len(PARAMS_SCOPE + old):]] = value
+    return out
+
+
+def remap_is_ports_own(features_from: dict) -> bool:
+    """Whether the blob of an ``on_host`` ``features_from`` is loaded through
+    ``remap_keys``' second form: its OLD lacks the ``['params']`` scope that
+    begins every key of a blob, so the JAX worker's filter keeps none of the
+    blob and extracts another pool from the same conf."""
+    remap = features_from.get("remap")
+    return bool(features_from.get("on_host") and features_from.get("weights") and remap
+                and not str(remap).split("=", 1)[0].startswith(PARAMS_SCOPE))
+
+
 def build_extractor(name: str, conf: dict, device, experiment=None, weights=None,
                     remap: str | None = None) -> torch.nn.Module:
     """The extractor ``name`` with ``conf`` on ``device`` in inference mode,
@@ -42,8 +73,8 @@ def build_extractor(name: str, conf: dict, device, experiment=None, weights=None
     parameters come from ``experiment`` (a run's last checkpoint, a ``.ckpt``
     or a blob; a pipeline's ``['extractor']`` scope is stripped) and then
     from ``weights`` (a blob, under WEIGHTS_PATH where the path is not
-    there, its flat keys rewritten by ``remap`` ``OLD=NEW``, keeping only the
-    keys that start with OLD), each restoring every parameter."""
+    there, its flat keys rewritten by ``remap`` ``OLD=NEW``: ``remap_keys``),
+    each restoring every parameter."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = build_model(name, conf, device=device)
@@ -57,8 +88,7 @@ def build_extractor(name: str, conf: dict, device, experiment=None, weights=None
             path = WEIGHTS_PATH / str(weights)
         flat, _, _ = load_weight_blob(path)
         if remap:
-            old, new = str(remap).split("=", 1)
-            flat = {k.replace(old, new): v for k, v in flat.items() if k.startswith(old)}
+            flat = remap_keys(flat, str(remap))
         require_restored(restore_from_flat_dict(model, flat), [path])
     return model.eval()
 

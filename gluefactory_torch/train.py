@@ -63,7 +63,9 @@ import json
 import logging
 import math
 import signal
+import sys
 import time
+import types
 from collections import defaultdict
 from collections.abc import Callable
 from pathlib import Path
@@ -459,13 +461,18 @@ def do_evaluation(model: torch.nn.Module, loader, eval_forward: Callable, pool: 
 
 class JSONLWriter:
     """Scalars to ``metrics.jsonl`` (one JSON object a write), and to
-    TensorBoard where ``torch.utils.tensorboard`` imports."""
+    TensorBoard where ``torch.utils.tensorboard`` imports. TensorBoard writes
+    scalars with its own stub of the TensorFlow API (its ``compat.notf``
+    switch): TensorFlow, where it is installed, takes seconds to import and
+    adds nothing here."""
 
     def __init__(self, log_dir: Path):
         log_dir.mkdir(parents=True, exist_ok=True)
         self.f = open(log_dir / "metrics.jsonl", "a")
         self.tb = None
         try:
+            sys.modules.setdefault("tensorboard.compat.notf",
+                                   types.ModuleType("tensorboard.compat.notf"))
             from torch.utils.tensorboard import SummaryWriter
 
             self.tb = SummaryWriter(str(log_dir))

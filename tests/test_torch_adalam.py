@@ -88,7 +88,7 @@ def test_adalam_matches_jax_with_its_draws(seed, conf):
     pred = model({**tdata, "draws": torch.from_numpy(draws)})
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.adalam", conf)
-    jpred = jmodel.apply(jmodel.init(jax.random.key(0), jdata), jdata)
+    jpred = jax.jit(jmodel.apply)(jax.jit(jmodel.init)(jax.random.key(0), jdata), jdata)
     for key in ("adalam_seeds", "adalam_kept", "matches0", "matches1"):
         np.testing.assert_array_equal(pred[key].numpy(), np.asarray(jpred[key]), err_msg=key)
     for key in ("matching_scores0", "matching_scores1"):

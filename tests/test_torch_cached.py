@@ -7,6 +7,8 @@ packages draw their procedural scenes with different rasterisers); the
 batch is compared on JAX's random numbers fed to ``make_batch_from_draws``,
 as the image engine's is (tests/test_torch_train.py)."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,9 +174,11 @@ def test_stage4_step0_matches_jax():
     pool = _synthetic_pool(seed=1)
     jbatch, _ = _jax_batch_and_draws(conf, pool, jax.random.key(2))
     jmodel = jax_build_model("two_view_pipeline", model_conf)
-    params = jmodel.init(jax.random.key(0), jbatch, method=jmodel.forward_and_loss)
-    pred = jmodel.apply(params, jbatch)
-    jloss = float(jnp.mean(jmodel.apply(params, pred, jbatch, method=jmodel.loss)[0]["total"]))
+    params = jax.jit(partial(jmodel.init, method=jmodel.forward_and_loss))(jax.random.key(0),
+                                                                          jbatch)
+    pred = jax.jit(jmodel.apply)(params, jbatch)
+    jloss = float(jnp.mean(jax.jit(partial(jmodel.apply, method=jmodel.loss))(
+        params, pred, jbatch)[0]["total"]))
 
     model = build_model("two_view_pipeline", model_conf, device="cpu", train=True)
     assert model.extractor is None

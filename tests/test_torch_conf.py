@@ -89,8 +89,10 @@ def test_unported_keys_refuse_any_other_value(name):
     ("matchers.lightglue", {"loss": {"nll_balancing": 0.25}}),
     ("matchers.lightglue", {"loss": {"fn": "focal"}}),
     ("extractors.superpoint", {"dtype": "int8"}),
-    ("matchers.depth_matcher", {"use_lines": True}),
-    ("matchers.depth_matcher", {"line_dist_th": 3.0}),
+    # the line ground truth is ported (tests/test_torch_line_gt.py): LBD and timeit
+    # stay refused
+    ("lines.lsd", {"describe": "lbd"}),
+    ("matchers.gluestick", {"timeit": True}),
 ])
 def test_refused_settings_name_the_key(name, conf):
     key = next(iter(_leaves(conf)))
@@ -127,6 +129,9 @@ def test_recipes_still_build():
     ("matchers.depth_matcher", {"th_epi": 2.0, "use_points": False}),
     ("matchers.oracle_matcher", {"source": "depth"}),
     ("matchers.adalam", {"num_seeds": 32, "seed": 3}),
+    ("matchers.depth_matcher", {"use_lines": True, "line_dist_th": 3.0}),
+    ("matchers.homography_matcher", {"use_lines": True, "line_overlap_th": 0.3}),
+    ("matchers.gluestick", {"checkpointed": True, "loss": {"inter_weight": 1.0}}),
 ])
 def test_ported_switches_build(name, conf):
     """The keys this slice ported left ``unported_conf`` and build."""

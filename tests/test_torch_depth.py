@@ -196,7 +196,7 @@ def test_ground_truth_matchers_match_jax(name, conf):
     pred = build_model(name, conf, device="cpu")(_pipeline_data(s, "torch"))
     jdata = _pipeline_data(s, "jax")
     jmodel = jax_build_model(name, conf)
-    ref = jmodel.apply(jmodel.init(jax.random.key(0), jdata), jdata)
+    ref = jax.jit(jmodel.apply)(jax.jit(jmodel.init)(jax.random.key(0), jdata), jdata)
     assert set(pred) == set(ref)
     for key, value in ref.items():
         value = np.asarray(value)

@@ -83,13 +83,13 @@ def test_a_jax_run_loads_and_predicts_as_jax(tmp_path, batch):
     """A run written by JAX's ``save_experiment`` (YAML ``config.yaml``):
     the port's ``load_model`` by its folder gives JAX's predictions."""
     jmodel = jax_build_model("two_view_pipeline", TINY)
-    params = jmodel.init(jax.random.key(3), jax.tree.map(jnp.asarray, batch))
+    params = jax.jit(jmodel.init)(jax.random.key(3), jax.tree.map(jnp.asarray, batch))
     jexp.save_experiment(tmp_path / "jax_run", {"params": jax.tree.map(np.asarray, params)},
                          Config({"model": TINY}), 0, 7,
                          eval_results={"loss/total": np.float64(1.5)})
     model = load_model({"name": "two_view_pipeline"}, str(tmp_path / "jax_run"), "cpu")
     pred = _predict(model, batch)
-    jpred = jmodel.apply(params, jax.tree.map(jnp.asarray, batch))
+    jpred = jax.jit(jmodel.apply)(params, jax.tree.map(jnp.asarray, batch))
     np.testing.assert_allclose(pred["keypoints0"].numpy(), np.asarray(jpred["keypoints0"]),
                                atol=1e-4)
     np.testing.assert_allclose(pred["matching_scores0"].numpy(),

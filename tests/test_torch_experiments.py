@@ -12,6 +12,7 @@ import json
 import os
 import signal
 from argparse import Namespace
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -60,8 +61,8 @@ def jax_side():
     batch = jax.tree.map(np.asarray, engine.make_batch(pool, jax.random.key(4)))
     conf = __graft_entry__._flagship_conf(tiny=True)
     model = jax_build_model("two_view_pipeline", conf)
-    params = model.init(jax.random.key(0), jax.tree.map(jnp.asarray, batch),
-                        method=model.forward_and_loss)
+    params = jax.jit(partial(model.init, method=model.forward_and_loss))(
+        jax.random.key(0), jax.tree.map(jnp.asarray, batch))
     return conf, batch, params
 
 

@@ -37,10 +37,11 @@ def _jax_flagship(data):
     conf["matcher"].update(attention="xla", checkpointed=False, save_layer_outputs=False)
     refiner = jax_build_model("matchers.match_refiner", conf.pop("filter"))
     model = jax_build_model("two_view_pipeline", conf)
-    params = model.init(jax.random.key(0), data)
+    # the blob holds every parameter: the template needs only their shapes
+    params = jax.eval_shape(model.init, jax.random.key(0), data)
     flat, _, _ = load_weight_blob(FLAGSHIP_WEIGHTS)
     pred = jax.jit(model.apply)(restore_from_flat_dict(params, flat), data)
-    refined = refiner.apply({}, {**data, **pred})
+    refined = jax.jit(refiner.apply)({}, {**data, **pred})
     return (jax.tree.map(np.asarray, {**pred, **refined}),
             jax.tree.map(np.asarray, pred))
 

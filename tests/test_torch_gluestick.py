@@ -103,8 +103,8 @@ def test_gluestick_is_jaxs_with_flax_init(variant):
     data = _data(len(variant))
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.gluestick", conf)
-    params = jmodel.init(jax.random.key(0), jdata)
-    ref = jax.tree.map(np.asarray, dict(jmodel.apply(params, jdata)))
+    params = jax.jit(jmodel.init)(jax.random.key(0), jdata)
+    ref = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
     model = build_model("matchers.gluestick", conf, device="cpu")
     load_state_strict(model, params_from_flat(state_to_flat_dict(params)))
     with torch.inference_mode():
@@ -116,11 +116,16 @@ def test_gluestick_is_jaxs_with_flax_init(variant):
 
 
 def test_training_options_are_refused():
-    for conf in ({"checkpointed": True}, {"loss": {"inter_weight": 1.0}}):
+    """The training options are ported (tests/test_torch_gluestick_train.py):
+    ``checkpointed`` and the loss weights build and are kept; a norm or a line
+    score source that the JAX model lacks is still refused."""
+    model = build_model("matchers.gluestick", {"checkpointed": True,
+                                               "loss": {"inter_weight": 1.0}}, device="cpu")
+    assert model.conf["checkpointed"] and model.conf["loss"]["inter_weight"] == 1.0
+    assert model.conf["loss"]["line_nll_weight"] == 1.0
+    for conf in ({"norm": "batch"}, {"line_score_source": "mean"}):
         with pytest.raises(NotImplementedError):
             build_model("matchers.gluestick", conf, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model("matchers.gluestick", device="cpu").loss({}, {})
 
 
 def test_torch_weight_converter_is_jaxs():
@@ -148,7 +153,8 @@ def test_torch_weight_converter_is_jaxs():
     model = build_model("matchers.gluestick", conf, device="cpu")
     load_state_strict(model, state)
     data = _data(7)
-    ref = jax.tree.map(np.asarray, dict(jax_build_model("matchers.gluestick", conf).apply(
+    ref = jax.tree.map(np.asarray, dict(jax.jit(jax_build_model("matchers.gluestick",
+                                                                conf).apply)(
         jparams, jax.tree.map(jnp.asarray, data))))
     with torch.inference_mode():
         pred = {k: v.numpy() for k, v in model(jax.tree.map(torch.from_numpy, data)).items()}
@@ -182,7 +188,8 @@ def test_blob_loads_strictly_and_pipeline_is_jaxs(tmp_path):
     data = {f"view{i}": {"image": im, "image_size": size} for i, im in enumerate(images)}
     jmodel, jflat = jax_load_model(Config(model_conf), str(GLUESTICK_WEIGHTS))
     jdata = jax.tree.map(jnp.asarray, data)
-    jparams = restore_params(jmodel.init(jax.random.key(0), jdata), jflat)
+    # the blob holds every parameter: the template needs only their shapes
+    jparams = restore_params(jax.eval_shape(jmodel.init, jax.random.key(0), jdata), jflat)
     ref = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(jparams, jdata)))
     with torch.inference_mode():
         pred = {k: v.numpy() for k, v in ours_model(jax.tree.map(torch.from_numpy, data)).items()}

@@ -18,6 +18,7 @@ import importlib, pkgutil
 import numpy as np
 import torch
 import chip_smoke
+import chip_smoke_gluestick
 import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):
@@ -205,6 +206,23 @@ est = load_estimator("homography", "hybrid_ransac")({{"num_hypotheses": 32}})(
 assert est["success"] and est["line_inliers"].shape == (5,)
 for name in ("hpatches_extended", "megadepth1500_extended"):
     assert get_benchmark(name).__module__.startswith("gluefactory_torch.eval.")
+# the thirteenth slice: GlueStick training on the cached-wireframe engine (the
+# wireframe pool extracted on_host, the line ground truth, the loss, remat)
+from gluefactory_torch.recipes import gluestick_cached_conf
+
+gconf = gluestick_cached_conf()
+gconf["data"].update(pool_size=2, val_pool_size=1, source_size=[96, 96], image_size=64,
+                     train_batch_size=2)
+gconf["data"]["features_from"].update(
+    weights=None, point_extractor={{**conf["extractor"], "dense_outputs": True,
+                                    "max_num_keypoints": 16}},
+    line_extractor={{"name": "lines.lsd", "max_num_lines": 8}})
+gconf["model"]["matcher"].update(n_layers=1, input_dim=32, descriptor_dim=32,
+                                 checkpointed=True, inter_supervision=[0])
+with tempfile.TemporaryDirectory() as tmp:
+    settings.DATA_PATH = Path(tmp)
+    _, history = training(gconf, Path(tmp) / "gs", steps=1, device="cpu")
+assert history[0]["skipped"] == 0.0 and np.isfinite(history[0]["loss/line_nll_0"]), history
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

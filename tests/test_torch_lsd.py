@@ -109,7 +109,7 @@ def test_model_is_jaxs(views):
     jmodel = jax_build_model("lines.lsd", conf)
     jdata = {"image": jnp.asarray(batch)}
     jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(
-        jmodel.init(jax.random.key(0), jdata), jdata)))
+        jax.jit(jmodel.init)(jax.random.key(0), jdata), jdata)))
     with torch.inference_mode():
         pred = build_model("lines.lsd", conf, device="cpu")({"image": torch.from_numpy(batch)})
     for key in ("lines", "line_scores", "valid_lines"):

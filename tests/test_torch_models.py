@@ -81,8 +81,8 @@ def test_superpoint_matches_jax():
     size = np.array([[80.0, 64.0], [72.0, 60.0]], np.float32)
     jmodel = jax_build_model("extractors.superpoint", conf)
     jdata = {"image": jnp.asarray(img), "image_size": jnp.asarray(size)}
-    params = jmodel.init(jax.random.key(0), jdata)
-    jpred = jmodel.apply(params, jdata)
+    params = jax.jit(jmodel.init)(jax.random.key(0), jdata)
+    jpred = jax.jit(jmodel.apply)(params, jdata)
     model = _port("extractors.superpoint", conf, params)
     with torch.inference_mode():
         pred = model({"image": torch.from_numpy(img), "image_size": torch.from_numpy(size)})
@@ -120,8 +120,8 @@ def test_lightglue_matches_jax(attention):
     data = _lightglue_inputs(np.random.default_rng(1))
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.lightglue", {**conf, "attention": "xla"})
-    params = jmodel.init(jax.random.key(1), jdata)
-    jpred = jmodel.apply(params, jdata)
+    params = jax.jit(jmodel.init)(jax.random.key(1), jdata)
+    jpred = jax.jit(jmodel.apply)(params, jdata)
     model = _port("matchers.lightglue", conf, params, heads={"": conf["num_heads"]})
     with torch.inference_mode():
         pred = model(jax.tree.map(torch.from_numpy, data))
@@ -150,8 +150,8 @@ def test_lightglue_scale_ori_matches_jax(with_scale_ori):
             data[f"oris{i}"] = rng.uniform(-np.pi, np.pi, (2, n)).astype(np.float32)
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.lightglue", conf)
-    params = jmodel.init(jax.random.key(3), jdata)
-    jpred = jmodel.apply(params, jdata)
+    params = jax.jit(jmodel.init)(jax.random.key(3), jdata)
+    jpred = jax.jit(jmodel.apply)(params, jdata)
     model = _port("matchers.lightglue", conf, params, heads={"": conf["num_heads"]})
     assert model.posenc.Wr.weight.shape[1] == 4
     with torch.inference_mode():
@@ -199,7 +199,7 @@ def test_match_refiner_matches_jax():
     conf = {"window_sampling": True}
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.match_refiner", conf)
-    jpred = jmodel.apply(jmodel.init(jax.random.key(0), jdata), jdata)
+    jpred = jax.jit(jmodel.apply)(jax.jit(jmodel.init)(jax.random.key(0), jdata), jdata)
     pred = MatchRefiner(conf)(jax.tree.map(torch.from_numpy, data))
     np.testing.assert_array_equal(pred["refined1"].numpy(), np.asarray(jpred["refined1"]))
     moved = np.abs(pred["keypoints1"].numpy() - kp1).max(-1) > 0.05
@@ -263,9 +263,11 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
 
 def test_unported_options_raise():
     # adaptive depth and width (tests/test_torch_adaptive.py), add_scale_ori
-    # (test_lightglue_scale_ori_matches_jax) and the refiner's static mode
-    # (tests/test_torch_refiner_modes.py) are ported; line ground truth is not
+    # (test_lightglue_scale_ori_matches_jax), the refiner's static mode
+    # (tests/test_torch_refiner_modes.py) and the line ground truth
+    # (tests/test_torch_line_gt.py) are ported; LBD descriptors are not
     build_model("matchers.lightglue", {"add_scale_ori": True}, device="cpu")
     build_model("matchers.match_refiner", {"window_sampling": "static"}, device="cpu")
+    build_model("matchers.depth_matcher", {"use_lines": True}, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model("matchers.depth_matcher", {"use_lines": True}, device="cpu")
+        build_model("lines.lsd", {"describe": "lbd"}, device="cpu")

@@ -48,8 +48,8 @@ def test_nn_matcher_matches_jax(conf, masks):
     data = _data(len(conf) + 10 * masks, masks=masks)
     jax_model = jax_build_model("matchers.nearest_neighbor_matcher", conf)
     jdata = jax.tree.map(jnp.asarray, data)
-    jpred = jax.tree.map(np.asarray, dict(jax_model.apply(jax_model.init(jax.random.key(0), jdata),
-                                                          jdata)))
+    jpred = jax.tree.map(np.asarray, dict(jax.jit(jax_model.apply)(
+        jax.jit(jax_model.init)(jax.random.key(0), jdata), jdata)))
     model = build_model("matchers.nearest_neighbor_matcher", conf, device="cpu")
     with torch.inference_mode():
         tpred = {k: v.numpy() for k, v in model(jax.tree.map(torch.from_numpy, data)).items()}

@@ -349,8 +349,9 @@ def test_soft_argmax_readout_matches_jax():
                               for k, v in params_from_flat(flat).items()})
     jmodel = jax_build_model("extractors.superpoint", conf)
     jdata = {"image": jnp.asarray(img)}
-    params = restore_from_flat_dict(jmodel.init(jax.random.key(0), jdata), flat)
-    jpred = jmodel.apply(params, jdata)
+    params = restore_from_flat_dict(jax.eval_shape(jmodel.init, jax.random.key(0), jdata),
+                                    flat)  # the blob holds every parameter
+    jpred = jax.jit(jmodel.apply)(params, jdata)
     with torch.inference_mode():
         pred = model({"image": _t(img)})
     np.testing.assert_array_equal(pred["keypoint_valid"].numpy(),

@@ -67,7 +67,7 @@ def homography_pair(seed: int = 5, n: int = 48):
 def _both(conf, data):
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.match_refiner", conf)
-    jpred = jmodel.apply(jmodel.init(jax.random.key(0), jdata), jdata)
+    jpred = jax.jit(jmodel.apply)({}, jdata)  # the refiner has no parameters
     pred = MatchRefiner(conf)(jax.tree.map(torch.from_numpy, data))
     return pred, jpred
 

@@ -74,7 +74,7 @@ def _both(image: np.ndarray, conf: dict):
     JAX's jitted, as its pipelines run it."""
     jmodel = jax_build_model("extractors.sift", conf)
     data = {"image": jnp.asarray(image)[None]}
-    params = jmodel.init(jax.random.key(0), data)
+    params = jax.jit(jmodel.init)(jax.random.key(0), data)
     jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, data)))
     model = build_model("extractors.sift", conf, device="cpu")
     with torch.inference_mode():

@@ -23,6 +23,8 @@ package's model on the other's val pool (``--side cross``):
         [--side jax|port|cross] [--seeds 0 1 2]
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,7 +189,8 @@ def _carried(jmodel_conf, jbatch):
     """(JAX parameters of ``jmodel_conf``'s pipeline, its loss and gradients
     on ``jbatch``, the port's pipeline holding the same parameters)."""
     jmodel = jax_build_model("two_view_pipeline", jmodel_conf)
-    params = jmodel.init(jax.random.key(0), jbatch, method=jmodel.forward_and_loss)
+    params = jax.jit(partial(jmodel.init, method=jmodel.forward_and_loss))(
+        jax.random.key(0), jbatch)
 
     def loss_fn(p):
         pred = jmodel.apply(p, jbatch)
@@ -259,7 +262,8 @@ def test_superglue_checkpoints_cross_both_ways(pools, tmp_path):
     jbatch, _ = _jax_batch_and_draws({**conf["data"], **SIFT_POOL}, pools[1], jax.random.key(1))
     _, _, model = _carried(model_conf, jbatch)
     jmodel = jax_build_model("two_view_pipeline", model_conf)
-    params = jmodel.init(jax.random.key(0), jbatch, method=jmodel.forward_and_loss)
+    params = jax.jit(partial(jmodel.init, method=jmodel.forward_and_loss))(
+        jax.random.key(0), jbatch)
     train_conf = {**T.default_train_conf, "lr": 1e-3}
     optimizer = T.make_optimizer(train_conf, model, model_conf)
     batch = jax.tree.map(lambda x: torch.from_numpy(np.array(x)), jbatch)
@@ -378,8 +382,8 @@ def _jax_side(recipe, blob, seed: int, pool=None) -> dict:
                                                        "pool_cache": False})
     pool = jax.tree.map(jnp.asarray, dataset.build_pool("val") if pool is None else pool)
     batch = dataset.make_batch(pool, jax.random.key(0), split="val")
-    params = restore_from_flat_dict(model.init(jax.random.key(0), batch),
-                                    load_weight_blob(blob)[0])
+    params = restore_from_flat_dict(jax.eval_shape(model.init, jax.random.key(0), batch),
+                                    load_weight_blob(blob)[0])  # every parameter
     results = do_evaluation(model, params, dataset.get_data_loader("val"),
                             make_eval_forward(model, dataset.make_batch), pool=pool)
     return {k: float(results[k]) for k in VAL_KEYS}

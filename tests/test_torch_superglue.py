@@ -118,8 +118,8 @@ def test_superglue_matches_jax_with_flax_init(norm, attention):
     data = _matcher_data(len(norm))
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.superglue", conf)
-    params = jmodel.init(jax.random.key(0), jdata)
-    jpred = jax.tree.map(np.asarray, dict(jmodel.apply(params, jdata)))
+    params = jax.jit(jmodel.init)(jax.random.key(0), jdata)
+    jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
     model = build_model("matchers.superglue", {**conf, "attention": attention}, device="cpu")
     load_state_strict(model, params_from_flat(state_to_flat_dict(params)))
     with torch.inference_mode():
@@ -157,7 +157,8 @@ def test_torch_weight_converter_matches_jax():
     model = build_model("matchers.superglue", conf, device="cpu")
     load_state_strict(model, state)
     data = _matcher_data(5, d=64)
-    jpred = jax.tree.map(np.asarray, dict(jax_build_model("matchers.superglue", conf).apply(
+    jpred = jax.tree.map(np.asarray, dict(jax.jit(jax_build_model("matchers.superglue",
+                                                                  conf).apply)(
         jparams, jax.tree.map(jnp.asarray, data))))
     with torch.inference_mode():
         tpred = {k: v.numpy() for k, v in model(jax.tree.map(torch.from_numpy, data)).items()}
@@ -197,7 +198,7 @@ def test_superglue_blob_on_opencv_features(gate_pair):
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.superglue", conf["matcher"])
     flat, _, _ = load_weight_blob(SG_SIFT_WEIGHTS)
-    params = restore_from_flat_dict(jmodel.init(jax.random.key(0), jdata),
+    params = restore_from_flat_dict(jax.eval_shape(jmodel.init, jax.random.key(0), jdata),
                                     {k.replace("['matcher']", ""): v for k, v in flat.items()})
     jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
     model = build_model("two_view_pipeline", {"matcher": conf["matcher"]}, device="cpu")
@@ -226,7 +227,8 @@ def test_sift_superglue_end_to_end(gate_pair):
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("two_view_pipeline", conf)
     flat, _, _ = load_weight_blob(blob)
-    params = restore_from_flat_dict(jmodel.init(jax.random.key(0), jdata), flat)
+    params = restore_from_flat_dict(jax.eval_shape(jmodel.init, jax.random.key(0), jdata),
+                                    flat)  # the blob holds every parameter
     jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
     model = build_model("two_view_pipeline", conf, device="cpu")
     load_blob_into(model, blob)
@@ -264,7 +266,7 @@ def test_sift_lightglue_model_card_end_to_end(gate_pair):
             "view1": {"image": img1[None], "image_size": size}}
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("two_view_pipeline", conf)
-    params = jmodel.init(jax.random.key(0), jdata)
+    params = jax.jit(jmodel.init)(jax.random.key(0), jdata)
     jpred = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
     model = build_model("two_view_pipeline", conf, device="cpu")
     load_state_strict(model, params_from_flat(state_to_flat_dict(params), {"matcher": 4}))

@@ -9,6 +9,7 @@ port's generators are tested for their distribution only.
 
 Tolerances are float32 ones (1e-5 or tighter) unless a line says why."""
 
+from functools import partial
 from pathlib import Path
 
 import jax
@@ -409,9 +410,11 @@ def test_lightglue_loss_matches_jax():
             "gt_matches1": _match_codes(rng, b, m, n)}
     jdata = jax.tree.map(jnp.asarray, data)
     jmodel = jax_build_model("matchers.lightglue", conf)
-    params = jmodel.init(jax.random.key(3), jdata, method=jmodel.forward_and_loss)
-    jpred = jmodel.apply(params, jdata)
-    jlosses_, jmetrics_ = jmodel.apply(params, jpred, jdata, method=jmodel.loss)
+    params = jax.jit(partial(jmodel.init, method=jmodel.forward_and_loss))(jax.random.key(3),
+                                                                          jdata)
+    jpred = jax.jit(jmodel.apply)(params, jdata)
+    jlosses_, jmetrics_ = jax.jit(partial(jmodel.apply, method=jmodel.loss))(params, jpred,
+                                                                             jdata)
     model = build_model("matchers.lightglue", conf, device="cpu", train=True)
     load_state_strict(model, params_from_flat(state_to_flat_dict(params), {"": 2}))
     tdata = jax.tree.map(_t, data)
@@ -559,8 +562,8 @@ def test_lr_scaling_matches_jax_masks():
     jmodel = jax_build_model("two_view_pipeline", conf)
     engine = JEngine({**_ENGINE_CONF, "train_batch_size": 1})
     pool = jax.tree.map(jnp.asarray, engine.build_pool("train"))
-    params = jmodel.init(jax.random.key(0), engine.make_batch(pool, jax.random.key(1)),
-                         method=jmodel.forward_and_loss)
+    params = jax.jit(partial(jmodel.init, method=jmodel.forward_and_loss))(
+        jax.random.key(0), engine.make_batch(pool, jax.random.key(1)))
     scaling = [[0.1, ["log_assignment", "posenc"]], [3.0, ["self_attn/Wqkv"]],
                [0.5, ["log_assignment_1"]], [7.0, ["no_such_module"]]]
     masks = lr_scaling_masks(params, scaling)

@@ -8,6 +8,8 @@ global gradient norm (frozen SuperPoint included), and the parameters after
 two clipped Adam/AdamW steps (optax on the JAX side, the port's Optimizer on
 the other), the second at a tenth of the learning rate."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,7 +43,8 @@ def jax_side():
     conf = __graft_entry__._flagship_conf(tiny=True)
     model = jax_build_model("two_view_pipeline", conf)
     jbatch = jax.tree.map(jnp.asarray, batch)
-    params = model.init(jax.random.key(0), jbatch, method=model.forward_and_loss)
+    params = jax.jit(partial(model.init, method=model.forward_and_loss))(
+        jax.random.key(0), jbatch)
 
     def loss_fn(params):
         pred = model.apply(params, jbatch)

@@ -8,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
-RUNTIME_FILES = ["chip_smoke.py", "weights/lg_tpu_stage2.f16.msgpack",
+RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "weights/lg_tpu_stage2.f16.msgpack",
                  "weights/lg5_init_spsoft.f16.msgpack", "weights/sp_tpu_stage0b.f16.msgpack",
                  "weights/sg_sift_stage1.f16.msgpack", "weights/lg_sift_stage2.f16.msgpack",
                  "weights/lg_sift_stage1.f16.msgpack", "weights/sp_tpu_stage0.f16.msgpack",
@@ -70,12 +70,14 @@ def test_runtime_files_are_sent_to_the_gpu_machine():
 
 
 def _chip_recipes() -> list[str]:
-    """The recipes of gluefactory_torch.recipes that chip_smoke.py runs."""
+    """The recipes of gluefactory_torch.recipes that chip_smoke.py runs (its
+    GlueStick phases from chip_smoke_gluestick.py)."""
     import re
 
     from gluefactory_torch import recipes
 
-    text = (ROOT / "chip_smoke.py").read_text()
+    text = "".join((ROOT / name).read_text() for name in ("chip_smoke.py",
+                                                          "chip_smoke_gluestick.py"))
     return sorted({name for name in re.findall(r"\b(\w+_conf)\(\)", text)
                    if callable(getattr(recipes, name, None))})
 

@@ -73,7 +73,8 @@ def test_wireframe_is_jaxs(tmp_path):
 
     jmodel = jax_build_model("lines.wireframe", conf)
     jdata = {"image": jnp.asarray(image), "image_size": jnp.asarray(size)}
-    params = restore_from_flat_dict(jmodel.init(jax.random.key(0), jdata), flat)
+    params = restore_from_flat_dict(jax.eval_shape(jmodel.init, jax.random.key(0), jdata),
+                                    flat)  # the blob holds every parameter
     ref = jax.tree.map(np.asarray, dict(jax.jit(jmodel.apply)(params, jdata)))
 
     model = build_model("lines.wireframe", conf, device="cpu")

@@ -6,8 +6,8 @@
 Phases, each printed with its elapsed seconds; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels (csrc/attention.cu and csrc/elementwise.cu, one
-     nvcc call each) and the host LSD (csrc/lsd.cpp, the host compiler), in
-     parallel;
+     nvcc call each) and the host libraries (csrc/lsd.cpp, csrc/lap.cpp,
+     csrc/elsed.cpp, the host compiler), in parallel;
   3. kernels: K1 (rotary self-attention) and K2 (masked attention) against
      their plain PyTorch versions on the card, in float32, float16 and
      bfloat16, at the flagship and training shapes, ragged shapes and shapes
@@ -130,6 +130,17 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      initialisation's, 3 steps; (c) recipes.gluestick_train_homography_conf: 2 steps
      of 9 layers on the host dataset with the wireframe in the step (LSD on the host),
      36 K2 launches a step; K2 timed on a step's inputs of each beside SDPA.
+ 20. the line benchmarks at full width (chip_smoke_lines.py): the RDNIM (20
+     pairs, day and night) and Wireframe (30 images) sets rendered by the port;
+     (a) HPatches-lines on phase 8's famA (8 sequences) with LSD, LSD+LBD,
+     ELSED, SOLD2+Wunsch (weights/sold2_tpu_stage0) and GlueStick stage 0 (24 K2
+     launches a pair, kernel against plain path), (b) RDNIM-lines with LSD+LBD
+     and SOLD2+Wunsch, (c) Wireframe with LSD and SOLD2, each held to the JAX
+     package's summaries on the same sets (LINES_JAX; the line RANSAC's AUCs
+     within the band of JAX's seeds 0-2); (d) ELSED and the exact assignment
+     (LAP) built on this host against JAX's native libraries, SOLD2 and the
+     Wunsch scores on the card against the CPU; (e) ms an item by stage, items
+     a second, peak memory.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
@@ -3320,7 +3331,9 @@ def main() -> int:
     from gluefactory_torch.ops import attention as A
     from gluefactory_torch.ops import elementwise as E
     from gluefactory_torch.ops import kernels
+    from gluefactory_torch.models.lines.elsed import SOURCE as ELSED_SOURCE
     from gluefactory_torch.models.lines.lsd import SOURCE as LSD_SOURCE
+    from gluefactory_torch.ops.lap import SOURCE as LAP_SOURCE
 
     # float32 means float32: no TF32 in the matmuls or the convolutions, and
     # deterministic convolutions so two runs detect the same keypoints
@@ -3339,8 +3352,9 @@ def main() -> int:
 
     log("phase 2: build")
     t = time.perf_counter()
-    kernels.build_all([A.SOURCE, E.SOURCE, LSD_SOURCE])  # one compiler each, in parallel
-    for source in (A.SOURCE, E.SOURCE, LSD_SOURCE):
+    sources = [A.SOURCE, E.SOURCE, LSD_SOURCE, LAP_SOURCE, ELSED_SOURCE]
+    kernels.build_all(sources)  # one compiler each, in parallel
+    for source in sources:
         kernels.load(source)
         log(f"  {source}: {'c++' if source.endswith('.cpp') else 'nvcc'} "
             f"{kernels.build_seconds[source]:.1f} s")
@@ -3435,6 +3449,14 @@ def main() -> int:
         gs_train_launches, gs_train = check_gluestick_training(device, Path(tmp) / "gs_train")
         log(f"  phase 19 took {time.perf_counter() - t:.1f} s")
 
+        from chip_smoke_lines import check_lines
+
+        log("phase 20: the line benchmarks at full width (HPatches-lines, RDNIM, Wireframe; "
+            "LSD+LBD, ELSED, SOLD2+Wunsch, GlueStick; the exact assignment)")
+        t = time.perf_counter()
+        lines_launches, _ = check_lines(device, Path(tmp), Path(tmp) / "gate")
+        log(f"  phase 20 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
@@ -3464,7 +3486,7 @@ def main() -> int:
                          for path, counts in sift_train_launches.items()},
                       **{path: counts["attention"]
                          for path, counts in eth3d_launches.items()},
-                      **gs_launches, **gs_train_launches},
+                      **gs_launches, **gs_train_launches, **lines_launches},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

@@ -172,7 +172,7 @@ def fill_ellipse(img, center, axes, angle_deg, color):
 
 
 def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
-                              max_points: int):
+                              max_points: int, max_segments: int = 0):
     """A procedural grayscale scene with exact corner ground truth: filled
     polygons, rectangles, checkerboards, lines and ellipses on a shaded
     background, plus noise. Every polygon vertex, rectangle corner, checker
@@ -180,7 +180,10 @@ def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
     random draws are those of the JAX engine, in the same order.
 
     Returns (image (h, w, 1) in [0, 1], points (max_points, 2), valid
-    (max_points,))."""
+    (max_points,)); with ``max_segments`` > 0 also (segments (max_segments,
+    2, 2), their validity): the drawn edges of at least 8 pixels (polygon and
+    rectangle sides, checker grid lines, lines), recorded from the drawing's
+    own data with no further draw, so the image is the same either way."""
     w, h = size
     gx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
     gy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
@@ -188,11 +191,21 @@ def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
     img = np.ascontiguousarray((a * gx + b * gy + c) / (a + b + c + 1e-8))
     img *= rng.uniform(0.3, 0.9)
     points: list[np.ndarray] = []
+    segments: list[np.ndarray] = []
 
     def add_pts(pts):
         for p in np.atleast_2d(pts):
             if 2 <= p[0] < w - 2 and 2 <= p[1] < h - 2:
                 points.append(np.asarray(p, np.float32))
+
+    def add_seg(p0, p1):
+        seg = np.asarray([p0, p1], np.float32)
+        if np.linalg.norm(seg[1] - seg[0]) >= 8.0:
+            segments.append(seg)
+
+    def add_loop(corners):
+        for e in range(len(corners)):
+            add_seg(corners[e], corners[(e + 1) % len(corners)])
 
     for _ in range(int(rng.integers(12, 26))):
         color = float(rng.uniform(0, 1))
@@ -206,12 +219,15 @@ def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
             ipts = pts.astype(np.int32).astype(np.float32)
             fill_polygon(img, ipts.astype(np.float64), color)
             add_pts(ipts)
+            add_loop(ipts)
         elif kind == 1:  # rectangle
             x0, y0 = rng.uniform(0, w - 20), rng.uniform(0, h - 20)
             x1, y1 = x0 + rng.uniform(10, w / 3), y0 + rng.uniform(10, h / 3)
             x0, y0, x1, y1 = int(x0), int(y0), int(x1), int(y1)
             fill_rectangle(img, x0, y0, x1, y1, color)
-            add_pts(np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32))
+            rect = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32)
+            add_pts(rect)
+            add_loop(rect)
         elif kind == 2:  # checkerboard patch
             rows, cols = int(rng.integers(2, 5)), int(rng.integers(2, 5))
             cell = int(rng.uniform(8, min(w, h) / 10))
@@ -225,12 +241,17 @@ def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
             corners = np.stack(np.meshgrid(x0 + cell * np.arange(cols + 1),
                                            y0 + cell * np.arange(rows + 1)), -1)
             add_pts(corners.reshape(-1, 2).astype(np.float32))
+            for r in range(rows + 1):
+                add_seg((x0, y0 + r * cell), (x0 + cols * cell, y0 + r * cell))
+            for col in range(cols + 1):
+                add_seg((x0 + col * cell, y0), (x0 + col * cell, y0 + rows * cell))
         elif kind == 3:  # line
             p0 = rng.uniform([0, 0], [w, h]).astype(int)
             p1 = rng.uniform([0, 0], [w, h]).astype(int)
             draw_line(img, p0.astype(np.float64), p1.astype(np.float64), color,
                       int(rng.integers(1, 4)))
             add_pts(np.stack([p0, p1]).astype(np.float32))
+            add_seg(p0.astype(np.float32), p1.astype(np.float32))
         else:  # ellipse: texture, no corner ground truth
             center = (int(rng.uniform(0, w)), int(rng.uniform(0, h)))
             axes = (int(rng.uniform(5, w / 6)), int(rng.uniform(5, h / 6)))
@@ -246,7 +267,14 @@ def generate_structured_scene(rng: np.random.Generator, size: tuple[int, int],
             arr = arr[rng.permutation(len(arr))[:max_points]]
         pts[:len(arr)] = arr
         valid[:len(arr)] = True
-    return img, pts, valid
+    if max_segments <= 0:
+        return img, pts, valid
+    segs = np.zeros((max_segments, 2, 2), np.float32)
+    seg_valid = np.zeros((max_segments,), bool)
+    if segments:
+        kept = np.stack(segments)[:max_segments]
+        segs[:len(kept)], seg_valid[:len(kept)] = kept, True
+    return img, pts, valid, segs, seg_valid
 
 
 POOL_PROCESS_MIN = 64  # procedural pools at least this large are drawn by forked processes

@@ -1,6 +1,7 @@
 """Benchmarks (gluefactory_tpu/eval): HPatches homography estimation and its
 extended (points and lines) form, MegaDepth-1500 relative pose and its
-extended form, ScanNet-1500 relative pose, ETH3D matching AP, and the
+extended form, ScanNet-1500 relative pose, ETH3D matching AP, the line
+benchmarks (HPatches lines, RDNIM lines, Wireframe), and the
 registry that the trainer's end-of-epoch benchmarks go through."""
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ BENCHMARKS = {  # name: (module, pipeline class)
     "eth3d": ("eth3d", "ETH3DPipeline"),
     "hpatches_extended": ("hpatches_extended", "HPatchesExtendedPipeline"),
     "megadepth1500_extended": ("megadepth1500_extended", "MegaDepth1500ExtendedPipeline"),
+    "hpatches_lines": ("hpatches_lines", "HPatchesLinesPipeline"),
+    "rdnim_lines": ("rdnim_lines", "RDNIMLinesPipeline"),
+    "wireframe": ("wireframe", "WireframePipeline"),
 }
 
 

@@ -11,10 +11,16 @@ each segment of view 1, gated by the overlap of the carried segment with it;
 a pair is matched where each is the other's cheapest (the first index on
 ties, as JAX's ``argmin``) and the cost is below ``dist_th``. Codes: the
 matched index, ``UNMATCHED`` (-1) or ``IGNORE`` (-2) for an invalid segment
-(with depth, also one whose samples are mostly not seen in view 1)."""
+(with depth, also one whose samples are mostly not seen in view 1).
+
+Beside them: the exact one-to-one assignment of a cost matrix on the host
+(``gt_line_matches_exact``, through ``ops.lap``), the merge of overlapping
+near-collinear segments (``merge_lines``) and the area distance of segments
+(``area_line_dist``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .homography import warp_points
@@ -169,3 +175,113 @@ def gt_line_matches_from_homography(lines0, lines1, valid0, valid1, H_0to1,
     ov = overlap_fraction(warped, lines1)
     valid_pair = valid0[..., :, None] & valid1[..., None, :] & (ov > overlap_th)
     return _codes(*_greedy_mutual_assignment(cost, valid_pair, dist_th), valid0, valid1)
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a numpy array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def gt_line_matches_exact(cost, valid_pair, th: float) -> np.ndarray:
+    """The exact one-to-one assignment of (B, L0, L1) costs on the host
+    (``ops.lap``, L0 <= L1): invalid pairs cost ``BIG`` = 1e6, and a row
+    keeps its column where that cost is below ``th``, else UNMATCHED.
+    Returns m0 (B, L0) int32."""
+    from ..ops.lap import batch_linear_assignment
+
+    BIG = 1e6
+    c = np.where(host_array(valid_pair), host_array(cost), BIG).astype(np.float32)
+    m0 = batch_linear_assignment(c)
+    b_idx = np.arange(c.shape[0])[:, None]
+    chosen = c[b_idx, np.arange(c.shape[1])[None], np.clip(m0, 0, None)]
+    return np.where((m0 >= 0) & (chosen < th), m0, UNMATCHED).astype(np.int32)
+
+
+def merge_lines(segs: torch.Tensor, valid: torch.Tensor, thresh: float = 5.0,
+                n_iters: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge overlapping near-collinear segments. Two valid segments are
+    joined where they overlap (either onto the other's line) and their
+    orthogonal distance is below ``thresh``; clusters are the components of
+    that graph, found by ``n_iters`` steps of min-label propagation (chains
+    up to 2^8 segments). Each cluster becomes one segment along its members'
+    length-weighted mean direction (each sign-aligned to the longest
+    member's), through their length-weighted mean midpoint, spanning the
+    projections of all their endpoints; it lives in the cluster's
+    lowest-index slot. segs (B, L, 2, 2), valid (B, L) -> (merged (B, L, 2,
+    2), merged_valid (B, L))."""
+    b, n = segs.shape[:2]
+    dev = segs.device
+    orth = orth_line_dist(segs, segs)
+    ov01 = overlap_fraction(segs, segs)
+    ov = torch.maximum(ov01, ov01.transpose(-1, -2))
+    pair_valid = valid[:, :, None] & valid[:, None, :]
+    adj = (ov > 0.0) & (orth < thresh) & pair_valid
+    adj = adj | (torch.eye(n, dtype=torch.bool, device=dev)[None] & valid[:, :, None])
+    idx = torch.arange(n, device=dev)
+    labels = torch.where(valid, idx[None], n)
+    for _ in range(n_iters):
+        neigh = torch.where(adj, labels[:, None, :], n)
+        labels = torch.minimum(labels, neigh.min(dim=-1).values)
+    onehot = (labels[:, :, None] == idx[None, None]) & valid[:, :, None]
+    onehot_f = onehot.to(segs.dtype)  # (B, L members, L clusters)
+    d = segs[:, :, 1] - segs[:, :, 0]
+    length = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    u = d / length.clamp_min(1e-8)
+    w = onehot_f * length[:, :, 0][:, :, None]  # length-weighted membership
+    seed_idx = w.argmax(dim=1)  # the longest member of each cluster (the first on ties)
+    seed_u = u.gather(1, seed_idx[..., None].expand(-1, -1, 2))
+    sign = torch.sign(torch.einsum("bld,bcd->blc", u, seed_u) + 1e-12)
+    mean_u = torch.einsum("blc,bld->bcd", w * sign, u)
+    mean_u = mean_u / torch.linalg.vector_norm(mean_u, dim=-1, keepdim=True).clamp_min(1e-8)
+    center = torch.einsum("blc,bld->bcd", w, 0.5 * (segs[:, :, 0] + segs[:, :, 1]))
+    center = center / w.sum(dim=1)[..., None].clamp_min(1e-8)
+    eps = segs.reshape(b, 2 * n, 2)
+    t = torch.einsum("becd,bcd->bec", eps[:, :, None, :] - center[:, None, :, :], mean_u)
+    member = onehot_f.repeat_interleave(2, dim=1) > 0  # (B, 2L, C)
+    t_min = torch.where(member, t, float("inf")).min(dim=1).values
+    t_max = torch.where(member, t, float("-inf")).max(dim=1).values
+    merged = torch.stack([center + t_min[..., None] * mean_u,
+                          center + t_max[..., None] * mean_u], dim=2)
+    merged_valid = (labels == idx[None]) & valid
+    merged = torch.where(merged_valid[..., None, None], merged, 0.0)
+    return torch.where(torch.isfinite(merged), merged, 0.0), merged_valid
+
+
+def area_line_dist(segs0: torch.Tensor, segs1: torch.Tensor, lbd: float = 1.0 / 24.0
+                   ) -> torch.Tensor:
+    """The length-unbiased area distance of segments, symmetrised over both
+    directions: asym(a, b) takes the heights h0, h1 of b's endpoints over
+    a's infinite line and the angle theta between the two (as ``arctan2``
+    of the sine and cosine, exact at theta = 0); where the segments cross,
+    the two enclosed triangles (h0^2 + h1^2) / (2 tan(theta) len(b)^2) (0
+    for parallel segments), else lbd * min(h0, h1) + sin(2 theta) / 4.
+    (..., L0, L1)."""
+
+    def orient(p, q, r):
+        return torch.sign((q[..., 0] - p[..., 0]) * (r[..., 1] - p[..., 1])
+                          - (q[..., 1] - p[..., 1]) * (r[..., 0] - p[..., 0]))
+
+    def unit(d):
+        return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True).clamp_min(1e-8)
+
+    def asym(a, b):
+        a0, a1 = a[..., :, None, 0, :], a[..., :, None, 1, :]
+        b0, b1 = b[..., None, :, 0, :], b[..., None, :, 1, :]
+        ua = unit(a[..., 1, :] - a[..., 0, :])[..., :, None, :]
+        ub = unit(b[..., 1, :] - b[..., 0, :])[..., None, :, :]
+        len_b = torch.linalg.vector_norm(b1 - b0, dim=-1)
+        h0 = ((b0 - a0)[..., 0] * ua[..., 1] - (b0 - a0)[..., 1] * ua[..., 0]).abs()
+        h1 = ((b1 - a0)[..., 0] * ua[..., 1] - (b1 - a0)[..., 1] * ua[..., 0]).abs()
+        cos_t = (ua * ub).sum(-1).abs()
+        sin_t = (ua[..., 0] * ub[..., 1] - ua[..., 1] * ub[..., 0]).abs()
+        theta = torch.atan2(sin_t, cos_t)
+        parallel = theta.abs() < 1e-8
+        tan_t = torch.where(parallel, 1.0, torch.tan(theta))
+        area = ((h0 ** 2 + h1 ** 2) / (2.0 * tan_t * len_b.clamp_min(1e-8) ** 2)
+                * (1.0 - parallel.to(theta.dtype)))
+        crossing = ((orient(a0, a1, b0) != orient(a0, a1, b1))
+                    & (orient(b0, b1, a0) != orient(b0, b1, a1)))
+        non_int = lbd * torch.minimum(h0, h1) + 0.25 * torch.sin(2.0 * theta)
+        return torch.where(crossing, area, non_int)
+
+    return 0.5 * (asym(segs0, segs1) + asym(segs1, segs0).transpose(-1, -2))

@@ -29,6 +29,8 @@ from ..utils.device import resolve_device
 class BaseModel(nn.Module):
     default_conf: ClassVar[dict] = {"name": None, "trainable": True, "timeit": False}
     unported_conf: ClassVar[frozenset] = frozenset({"timeit"})
+    # appended to a refusal: where the refused keys are to be ported
+    unported_note: ClassVar[str] = ""
     required_data_keys: ClassVar[list] = []
 
     def __init__(self, conf: dict | None = None):
@@ -40,7 +42,8 @@ class BaseModel(nn.Module):
             raise NotImplementedError(
                 f"{type(self).__name__} does not implement "
                 + ", ".join(f"{key}={value!r}" for key, value in refused.items())
-                + " (only the default values are ported)")
+                + " (only the default values are ported)"
+                + (f"; {self.unported_note}" if self.unported_note else ""))
 
     def forward(self, data: dict) -> dict:
         for key in self.required_data_keys:

@@ -11,8 +11,9 @@ sqrt(length), ordered by ``np.argsort(-scores)`` and cut to
 ``max_num_lines`` slots with a ``valid_lines`` mask. The detector runs on
 the host whatever the model's device, the images of a batch on threads (the
 C++ call releases the GIL; each image's segments and their order are its
-own); its outputs go to the image's device. ``describe: 'lbd'`` (LBD
-descriptors) is not ported."""
+own); its outputs go to the image's device. ``describe: 'lbd'`` adds LBD
+descriptors of the segments (``lines/lbd.py``), computed on the image's
+device from the float grey image."""
 
 from __future__ import annotations
 
@@ -75,37 +76,49 @@ def detect_lsd_np(image_u8: np.ndarray, max_lines: int, min_length: float):
     return lines, sc, valid
 
 
+def grey_float(image: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) float images -> (B, H, W) float grey, as the JAX
+    wrappers compute it."""
+    if image.shape[-1] == 3:  # as XLA fuses the JAX wrapper's weighted sum
+        return _fma(image[..., 2], float(_F32(GRAY[2])),
+                    _fma(image[..., 1], float(_F32(GRAY[1])), image[..., 0] * GRAY[0]))
+    return image[..., 0]
+
+
 def grey_u8(image: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) float images in [0, 1] -> (B, H, W) uint8, as the JAX
     wrapper computes them."""
-    if image.shape[-1] == 3:  # as XLA fuses the JAX wrapper's weighted sum
-        image = _fma(image[..., 2], float(_F32(GRAY[2])),
-                     _fma(image[..., 1], float(_F32(GRAY[1])), image[..., 0] * GRAY[0]))
-    else:
-        image = image[..., 0]
-    return torch.clamp(image * 255.0, 0, 255).to(torch.uint8)
+    return torch.clamp(grey_float(image) * 255.0, 0, 255).to(torch.uint8)
 
 
 class LSD(BaseModel):
     default_conf: ClassVar[dict] = {
         "max_num_lines": 250,
         "min_length": 15.0,
-        "describe": None,  # 'lbd' appends LBD line descriptors (not ported)
+        "describe": None,  # 'lbd' appends LBD line descriptors
         "lbd": {"n_bands": 9, "band_width": 7.0, "n_samples": 32},
         "trainable": False,
     }
-    unported_conf: ClassVar[frozenset] = frozenset({"describe"})
     required_data_keys: ClassVar[list] = ["image"]
 
     def _forward(self, data: dict) -> dict:
         image = data["image"]
         m, min_length = int(self.conf["max_num_lines"]), float(self.conf["min_length"])
-        greys = grey_u8(image).cpu().numpy()
+        grey = grey_float(image)
+        greys = torch.clamp(grey * 255.0, 0, 255).to(torch.uint8).cpu().numpy()
         _library()  # built and loaded before the threads start
         with ThreadPoolExecutor(max(1, min(len(greys), os.cpu_count() or 1))) as pool:
-            outs = list(pool.map(lambda grey: detect_lsd_np(grey, m, min_length), greys))
-        return {key: torch.from_numpy(np.stack([o[j] for o in outs])).to(image.device)
+            outs = list(pool.map(lambda g: detect_lsd_np(g, m, min_length), greys))
+        pred = {key: torch.from_numpy(np.stack([o[j] for o in outs])).to(image.device)
                 for j, key in enumerate(("lines", "line_scores", "valid_lines"))}
+        if self.conf["describe"] == "lbd":
+            from .lbd import lbd_describe
+
+            lbd = self.conf["lbd"]
+            pred["line_descriptors"] = lbd_describe(
+                grey, pred["lines"], pred["valid_lines"], n_bands=int(lbd["n_bands"]),
+                band_width=float(lbd["band_width"]), n_samples=int(lbd["n_samples"]))
+        return pred
 
 
 __main_model__ = LSD

@@ -980,3 +980,50 @@ def gate_conf(name: str) -> tuple[dict, object]:
     key of ``GATE_BOUNDS``."""
     conf, blob = _GATES[name]
     return {"name": "two_view_pipeline", **copy.deepcopy(conf)}, blob
+
+
+# --- the line benchmarks: HPatches lines, RDNIM lines, Wireframe ----------------------
+
+SOLD2_WEIGHTS = "weights/sold2_tpu_stage0.f16.msgpack"
+_LSD_LBD = {"name": "two_view_pipeline",
+            "extractor": {"name": "lines.lsd", "max_num_lines": 256, "describe": "lbd"},
+            "matcher": {"name": "matchers.line_matcher_lbd", "score_th": 0.1}}
+# the blob's model conf holds its training loss (desc_nll_weight 1.0), which the
+# port refuses (SOLD2's training is not ported); inference does not read it, so the
+# recipes set the default back over it
+_SOLD2 = {"name": "lines.sold2", "max_num_lines": 512, "max_num_junctions": 250,
+          "sparse_outputs": True, "loss": {"desc_nll_weight": 0.0}}
+_SOLD2_WUNSCH = {"name": "two_view_pipeline", "extractor": _SOLD2,
+                 "matcher": {"name": "matchers.wunsch_line_matcher", "num_samples": 8,
+                             "desc_stride": 4}}
+# each benchmark's confs, named after the committed outputs/results/<benchmark>/<name>
+# (each a model and its checkpoint; the data and eval sections are the pipeline's)
+LINE_CONFS = {
+    "hpatches_lines": {
+        "lsd_lines": {"model": {"name": "two_view_pipeline",
+                                "extractor": {"name": "lines.lsd", "max_num_lines": 256}}},
+        "lsd_lbd": {"model": _LSD_LBD},
+        "elsed_lines": {"model": {"name": "two_view_pipeline",
+                                  "extractor": {"name": "lines.elsed", "max_num_lines": 256}}},
+        "sold2_wunsch": {"model": _SOLD2_WUNSCH, "checkpoint": SOLD2_WEIGHTS},
+        "gluestick_stage0": {  # the committed conf's extractor names 256 lines; the
+            # wireframe reads its line extractor's 128
+            "model": {**_gluestick_model(), "extractor": {**_wireframe(), "max_num_lines": 256}},
+            "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"},
+    },
+    "rdnim_lines": {
+        "lsd_lbd": {"model": _LSD_LBD},
+        "sold2_wunsch": {"model": _SOLD2_WUNSCH, "checkpoint": SOLD2_WEIGHTS},
+    },
+    "wireframe": {
+        "lsd": {"model": {"name": "lines.lsd", "max_num_lines": 512}},
+        "sold2": {"model": _SOLD2, "checkpoint": SOLD2_WEIGHTS},
+    },
+}
+
+
+def line_conf(benchmark: str, name: str) -> dict | None:
+    """The conf ``name`` of the line benchmark ``benchmark`` (``LINE_CONFS``),
+    or None where it has none of that name."""
+    conf = LINE_CONFS.get(benchmark, {}).get(name)
+    return None if conf is None else copy.deepcopy(conf)

@@ -89,9 +89,9 @@ def test_unported_keys_refuse_any_other_value(name):
     ("matchers.lightglue", {"loss": {"nll_balancing": 0.25}}),
     ("matchers.lightglue", {"loss": {"fn": "focal"}}),
     ("extractors.superpoint", {"dtype": "int8"}),
-    # the line ground truth is ported (tests/test_torch_line_gt.py): LBD and timeit
-    # stay refused
-    ("lines.lsd", {"describe": "lbd"}),
+    # LBD is ported (tests/test_torch_line_models.py): SOLD2's loss and timeit stay
+    # refused
+    ("lines.sold2", {"loss": {"desc_nll_weight": 1.0}}),
     ("matchers.gluestick", {"timeit": True}),
 ])
 def test_refused_settings_name_the_key(name, conf):
@@ -161,14 +161,16 @@ def test_cached_engine_on_host_builds_and_weights_refuse_off_it(tmp_path, monkey
 
 
 def test_trainer_refuses_run_benchmarks():
-    """A benchmark that is not ported, and an overlay that changes a
-    parameter's shape (the JAX trainer's message), are refused before any
-    step; hpatches with an overlay of keypoint counts is accepted."""
+    """A benchmark that the port does not have (every benchmark of the JAX
+    package is ported now, so a name that neither package has), and an
+    overlay that changes a parameter's shape (the JAX trainer's message), are
+    refused before any step; hpatches with an overlay of keypoint counts is
+    accepted."""
     conf = stage2_conf()
     conf["data"].update(pool_size=1, source_size=[96, 96])
     conf["train"]["load_experiment"] = None  # stage 2's start is not committed
-    conf["train"]["run_benchmarks"] = [{"name": "hpatches_lines"}]
-    with pytest.raises(NotImplementedError, match="hpatches_lines"):
+    conf["train"]["run_benchmarks"] = [{"name": "megadepth1500_lines"}]
+    with pytest.raises(NotImplementedError, match="megadepth1500_lines"):
         Trainer(conf, device="cpu")
     conf["train"]["run_benchmarks"] = [{"name": "hpatches",
                                         "model": {"matcher": {"descriptor_dim": 128}}}]

@@ -7,7 +7,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "flax", "gluefactory_tpu", "msgpack", "cv2", "yaml", "h5py", "omegaconf")
+BLOCKED = ("jax", "flax", "gluefactory_tpu", "msgpack", "cv2", "yaml", "h5py", "omegaconf",
+           "scipy")
 
 SCRIPT = """
 import sys
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 import chip_smoke
 import chip_smoke_gluestick
+import chip_smoke_lines
 import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):

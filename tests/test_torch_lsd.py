@@ -117,9 +117,20 @@ def test_model_is_jaxs(views):
     assert pred["valid_lines"].sum() > 100
 
 
-def test_lbd_descriptors_are_refused():
-    with pytest.raises(NotImplementedError, match="describe"):
-        build_model("lines.lsd", {"describe": "lbd"}, device="cpu")
+def test_lbd_descriptors_match_jax(views):
+    """``describe: 'lbd'`` adds LBD descriptors of the segments, within 1e-5
+    of the JAX package's LSD (the segments equal)."""
+    batch = views["a240"][None]
+    conf = {"max_num_lines": 64, "describe": "lbd"}
+    jmodel = jax_build_model("lines.lsd", conf)
+    jdata = {"image": jnp.asarray(batch)}
+    jpred = jax.jit(jmodel.apply)(jax.jit(jmodel.init)(jax.random.key(0), jdata), jdata)
+    with torch.inference_mode():
+        pred = build_model("lines.lsd", conf, device="cpu")({"image": torch.from_numpy(batch)})
+    np.testing.assert_array_equal(pred["lines"].numpy(), np.asarray(jpred["lines"]))
+    np.testing.assert_allclose(pred["line_descriptors"].numpy(),
+                               np.asarray(jpred["line_descriptors"]), atol=1e-5, rtol=0)
+    assert pred["line_descriptors"].shape == (1, 64, 72)
 
 
 def gate_view_segments(root) -> list[dict]:

@@ -8,11 +8,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
-RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "weights/lg_tpu_stage2.f16.msgpack",
+RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "chip_smoke_lines.py",
+                 "weights/lg_tpu_stage2.f16.msgpack",
                  "weights/lg5_init_spsoft.f16.msgpack", "weights/sp_tpu_stage0b.f16.msgpack",
                  "weights/sg_sift_stage1.f16.msgpack", "weights/lg_sift_stage2.f16.msgpack",
                  "weights/lg_sift_stage1.f16.msgpack", "weights/sp_tpu_stage0.f16.msgpack",
-                 "weights/gluestick_tpu_stage0.f16.msgpack"]
+                 "weights/gluestick_tpu_stage0.f16.msgpack", "weights/sold2_tpu_stage0.f16.msgpack"]
 
 
 def _git(*args: str) -> subprocess.CompletedProcess:
@@ -32,15 +33,16 @@ def test_runtime_files_are_tracked(tracked):
                      if p.is_file() and "_build" not in p.parts
                      and "__pycache__" not in p.parts)
     assert {"gluefactory_torch/csrc/attention.cu", "gluefactory_torch/csrc/elementwise.cu",
-            "gluefactory_torch/csrc/lsd.cpp"} <= set(package)
+            "gluefactory_torch/csrc/lsd.cpp", "gluefactory_torch/csrc/lap.cpp",
+            "gluefactory_torch/csrc/elsed.cpp"} <= set(package)
     for path in RUNTIME_FILES + package:
         assert path in tracked, f"{path} is read at run time but not tracked"
         assert _git("check-ignore", "-q", path).returncode != 0, f"{path} is gitignored"
 
 
 def test_build_products_are_ignored(tracked):
-    for product in ("libattention_0.so", "libelementwise_0.so", "liblsd_0.so",
-                    "kernel_probe.json"):
+    for product in ("libattention_0.so", "libelementwise_0.so", "liblsd_0.so", "liblap_0.so",
+                    "libelsed_0.so", "kernel_probe.json"):
         assert _git("check-ignore", "-q", f"gluefactory_torch/_build/{product}").returncode == 0
     assert not any(p.startswith("gluefactory_torch/_build/") for p in tracked)
 
@@ -71,13 +73,15 @@ def test_runtime_files_are_sent_to_the_gpu_machine():
 
 def _chip_recipes() -> list[str]:
     """The recipes of gluefactory_torch.recipes that chip_smoke.py runs (its
-    GlueStick phases from chip_smoke_gluestick.py)."""
+    GlueStick phases from chip_smoke_gluestick.py, its line benchmarks from
+    chip_smoke_lines.py)."""
     import re
 
     from gluefactory_torch import recipes
 
     text = "".join((ROOT / name).read_text() for name in ("chip_smoke.py",
-                                                          "chip_smoke_gluestick.py"))
+                                                          "chip_smoke_gluestick.py",
+                                                          "chip_smoke_lines.py"))
     return sorted({name for name in re.findall(r"\b(\w+_conf)\(\)", text)
                    if callable(getattr(recipes, name, None))})
 
@@ -96,3 +100,20 @@ def test_chip_recipes_read_blobs_the_gpu_machine_gets(recipe, tracked):
             path = str(Path(path).relative_to(ROOT)) if Path(path).is_absolute() else path
             if path.startswith("weights/"):
                 assert path in RUNTIME_FILES and path in tracked, f"{recipe}: {path}"
+
+
+def _line_confs() -> list[str]:
+    from gluefactory_torch.recipes import LINE_CONFS
+
+    return [f"{bench}/{name}" for bench, confs in LINE_CONFS.items() for name in confs]
+
+
+@pytest.mark.parametrize("name", _line_confs())
+def test_line_confs_read_blobs_the_gpu_machine_gets(name, tracked):
+    """Each line benchmark's conf (phase 20 runs them all) names only blobs
+    that are tracked and sent to the GPU machine: SOLD2's among them."""
+    from gluefactory_torch.recipes import line_conf
+
+    path = line_conf(*name.split("/")).get("checkpoint")
+    if path:
+        assert path in RUNTIME_FILES and path in tracked, f"{name}: {path}"

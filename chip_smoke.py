@@ -83,8 +83,9 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      the CPU on gate views; (b) the JAX gates for SIFT+SuperGlue
      (weights/sg_sift_stage1), SIFT+LightGlue (weights/lg_sift_stage2) and
      SuperPoint stage 0b + NN on their 6 pairs, kernel path against plain path;
-     (c) SIFT+SuperGlue on phase 8's famA and famB (2048 slots, 9 layers, Sinkhorn
-     50, the RANSAC sweep) held to the JAX package's summaries, 36 K2 launches
+     (c) SIFT+SuperGlue on phase 8's famA and famB's first 8 sequences (2048 slots,
+     9 layers, Sinkhorn 50, the RANSAC sweep) held to the JAX package's summaries
+     (famB's mAA to the band of JAX's RANSAC seeds 0-2), 36 K2 launches
      and no K1 a pair, the time of SIFT, SuperGlue and Sinkhorn a pair; (d)
      SIFT+NN and SuperPoint+NN on famA's first 8 sequences against JAX's;
  16. SIFT-feature training (see check_sift_training): (a) the cached engine's SIFT
@@ -113,8 +114,8 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      against the CPU; (f) eval.timing_measurement of the flagship at batch 1 and 8.
  18. GlueStick stage 0 on the SuperPoint + LSD wireframe (chip_smoke_gluestick.py), 24 K2
      launches and no K1 a pair, held to the JAX package's summaries on the same sets: (a)
-     HPatches famA and famB (phase 8's sets), kernel against plain path, the time by
-     stage; (b) HPatches-extended on famA's first 8 sequences; (c) ETH3D on phase 17's
+     HPatches famA and famB's first 8 sequences (phase 8's sets; famB's mAA to the band
+     of JAX's RANSAC seeds 0-2), kernel against plain path, the time by stage; (b) HPatches-extended on famA's first 8 sequences; (c) ETH3D on phase 17's
      set; (d) MegaDepth-1500-extended on phase 10's set, its first pairs' 5-point
      LO-RANSAC on the card against the CPU on the same minimal sets in float64; (e) the
      port's host LSD on the gate views against OpenCV's segments.
@@ -141,6 +142,19 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      (LAP) built on this host against JAX's native libraries, SOLD2 and the
      Wunsch scores on the card against the CPU; (e) ms an item by stage, items
      a second, peak memory.
+ 21. JPLDD at full width (chip_smoke_jpldd.py; 16/32/64/128 channels, dim 128, 512
+     keypoints, POLD2 on 250 of them, 480-pixel views): (a)
+     weights/jpldd_tpu_structured_descB on the gate's 9 views, card against CPU (the
+     CPU's side in a spawn process beside the rest); (b) HPatches-extended
+     (jpldd_structured_descB) on famA's first 8 sequences and (c) HPatches-lines
+     (jpldd_structured_descB_wunsch, jpldd_stage0_tuned) on them, held to the JAX
+     package's summaries on the same set; (d) jpldd_ondevice_structured from the
+     flax-style initialisation (step 0 card against CPU, 2 epochs of 4 steps with
+     evaluations, a --restore), jpldd_desc_stage_structured from
+     weights/jpldd_tpu_structured (3 steps, everything outside desc_head bit for
+     bit), sold2_train_pairs (3 steps) and jpldd_train_synthetic (2 steps on the host
+     dataset), the pools cut to 128 + 16 scenes; (e) ms a pair by stage, step times,
+     peak memory.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
@@ -2068,12 +2082,17 @@ SIFT_GATES = ("sift_superglue", "sift_lightglue", "superpoint_nn")  # phase 15(b
 # (c), (d): the JAX package's summaries on phase 8's sets (RANSAC seed 0, on the CPU):
 # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_superglue.py --conf <folder of
 # outputs/results/hpatches> --sets famA=... famB=... [--max_seqs 8]
-SIFT_SG_JAX = {  # --conf sift_sg_stage1
+SIFT_SG_JAX = {  # --conf sift_sg_stage1 (famB: --max_seqs 8)
     "famA": {"H_error_ransac_mAA": 79.124, "mprec@1px": 0.567, "mnum_keypoints": 327.1,
              "mnum_matches": 207.01},
-    "famB": {"H_error_ransac_mAA": 88.516, "mprec@1px": 0.642, "mnum_keypoints": 366.6,
-             "mnum_matches": 209.347},
+    "famB": {"H_error_ransac_mAA": 94.064, "mprec@1px": 0.639, "mnum_keypoints": 358.0,
+             "mnum_matches": 217.625},
 }
+# (c) famB at its first 8 sequences (40 of its 150 pairs, all of them illumination
+# changes), for the script's time; its mAA is held within 1.5 of JAX's RANSAC seeds 0-2
+# on them (--seed N --reuse)
+SIFT_SG_SEQS = {"famB": 8}
+SIFT_SG_MAA_SEEDS = {"famB": [94.064, 93.814, 94.056]}
 NN_SEQS = 8  # (d): famA's first 8 sequences, 40 pairs
 # recipe -> (its folder of outputs/results/hpatches, JAX's summaries with RANSAC seed 0,
 # JAX's mAA with seeds 0-4: --seed N --reuse)
@@ -2303,8 +2322,8 @@ def check_sift_hpatches(device, root: Path) -> tuple[dict, dict]:
     launches = {"attention_rotary": 0, "attention": 0}
     report, failures = {}, []
     for name, ref in SIFT_SG_JAX.items():
-        pipeline = HPatchesPipeline(merge(conf, {"data": {"data_dir": str(root / name)}}),
-                                    device=device)
+        data = {"data_dir": str(root / name), "max_seqs": SIFT_SG_SEQS.get(name)}
+        pipeline = HPatchesPipeline(merge(conf, {"data": data}), device=device)
         n_pairs = len(pipeline.dataset)
         A.reset_launches()
         t = time.perf_counter()
@@ -2325,7 +2344,7 @@ def check_sift_hpatches(device, root: Path) -> tuple[dict, dict]:
             f"pairs/s); median pair latency {forward:.1f} ms (SIFT on both views and "
             f"SuperGlue), median RANSAC sweep {sweep:.1f} ms a pair; launches {counts}")
         log(f"  {name} summaries: {json.dumps(summaries)}")
-        hold(name, summaries, ref, failures)
+        hold(name, summaries, ref, failures, SIFT_SG_MAA_SEEDS.get(name))
     report["stages"] = time_sift_sg(model, HPatchesDataset({"data_dir": str(root / "famA")}),
                                     device, STAGE_PAIRS)
     s = report["stages"]
@@ -3456,6 +3475,14 @@ def main() -> int:
         t = time.perf_counter()
         lines_launches, _ = check_lines(device, Path(tmp), Path(tmp) / "gate")
         log(f"  phase 20 took {time.perf_counter() - t:.1f} s")
+
+        from chip_smoke_jpldd import check_jpldd
+
+        log("phase 21: JPLDD at full width (the ALIKED blocks, POLD2, the NN point-line "
+            "matcher; its two training phases, SOLD2's training)")
+        t = time.perf_counter()
+        check_jpldd(device, Path(tmp), Path(tmp) / "gate")
+        log(f"  phase 21 took {time.perf_counter() - t:.1f} s")
 
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],

@@ -9,12 +9,14 @@ line repeatability and localisation error (orthogonal distance,
 whose view-0 segment, warped by the true homography, lies within
 ``line_match_th`` of its partner (orthogonal distance), and their count.
 
-    python -m gluefactory_torch.eval.hpatches_extended [--tag T] [--conf conf.json]
+    python -m gluefactory_torch.eval.hpatches_extended [--tag T] [--conf NAME]
         [--checkpoint C] [--device cuda|cpu] [--overwrite] [--overwrite_eval]
         [dot.key=value ...]
 
-Without ``--conf`` it runs GlueStick stage 0 on the SuperPoint + LSD
-wireframe (``recipes.hpatches_extended_gluestick_conf``) on
+``--conf`` names a conf of ``recipes.LINE_CONFS['hpatches_extended']`` (the
+committed ``outputs/results/hpatches_extended/<name>``: GlueStick's
+``gluestick_stage0_hybrid``, the default, and JPLDD's ``jpldd_*``), a config
+under ``gluefactory_tpu/configs`` or a file. Data default to
 ``data/hpatches-sequences-release``; results go to
 ``outputs/results/hpatches_extended/<tag>``."""
 
@@ -29,10 +31,9 @@ import torch
 from ..geometry.homography import warp_lines
 from ..geometry.lines import orth_line_dist
 from ..models.cache_loader import CacheLoader
-from ..recipes import hpatches_extended_gluestick_conf
 from .eval_pipeline import unbatch
 from .hpatches import HPatchesPipeline
-from .megadepth1500 import run
+from .hpatches_lines import run_lines
 from .metrics import keypoint_repeatability, line_repeatability
 
 
@@ -89,8 +90,8 @@ class HPatchesExtendedPipeline(HPatchesPipeline):
 
 
 def main(argv: list[str] | None = None):
-    return run(HPatchesExtendedPipeline, "hpatches_extended",
-               hpatches_extended_gluestick_conf(), argv)
+    return run_lines(HPatchesExtendedPipeline, "hpatches_extended", "gluestick_stage0_hybrid",
+                     argv)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,15 @@ for the 1 x 1 kernels, flax's 'SAME' padding (none, at any size and stride),
 parameters named as the JAX package's (``stem.c1.weight``,
 ``stem.n1.scale``). Maps are returned in the JAX layout (B, H, W, C).
 
-SOLD2's training (its ``loss``, the synthetic-shapes engines and
-``sold2_train_pairs``) is not ported: the ``loss`` keys are refused."""
+``loss`` is JAX's: a cross-entropy of the junction cells against the cells
+of the ground-truth segments' rounded endpoints (the dustbin where a cell
+has none; where two endpoints fall in one cell the later one's in-cell
+index is the target, as XLA's scatter keeps the last write), and a weighted
+BCE of the line heatmap against the segments rasterised at 64 samples each
+and dilated by a 5x5 max. Inside a two-view pipeline on the pairs engine
+(``datasets/synthetic_shapes_ondevice_pairs.py``) the two views' losses are
+averaged and the dense descriptors' InfoNCE over the shared source vertices
+(an identity correspondence where both views hold the vertex) is added."""
 
 from __future__ import annotations
 
@@ -31,8 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.nms import select_top_k_keypoints, simple_nms
+from ...ops.interpolate import sample_descriptors
+from ...ops.nms import max_pool_2d, select_top_k_keypoints, simple_nms
 from ..base_model import BaseModel
+from ..utils.desc_losses import nll_desc_loss
 from ..utils.init import flax_reset_
 
 GRAY = (0.299, 0.587, 0.114)
@@ -115,9 +124,6 @@ class SOLD2(BaseModel):
         "loss": {"heatmap_weight": 1.0, "junction_weight": 1.0, "pos_weight": 100.0,
                  "desc_nll_weight": 0.0, "desc_nll_temp": 0.1},
     }
-    unported_conf: ClassVar[frozenset] = frozenset({"loss"})
-    unported_note: ClassVar[str] = ("SOLD2's loss and training (the synthetic-shapes engines, "
-                                    "sold2_train_pairs) are a later slice of the port")
     required_data_keys: ClassVar[list] = ["image"]
 
     def __init__(self, conf: dict | None = None):
@@ -193,7 +199,78 @@ class SOLD2(BaseModel):
         return pred
 
     def loss(self, pred: dict, data: dict):
-        raise NotImplementedError(self.unported_note)
+        conf = self.conf["loss"]
+        if "junction_logits0" in pred:
+            losses, total = {}, 0.0
+            for i in "01":
+                junc_ce, heat_bce = self._single_view_loss(
+                    pred[f"junction_logits{i}"], pred[f"line_heatmap{i}"], data[f"lines{i}"],
+                    data.get(f"valid_lines{i}"))
+                losses[f"junction_ce{i}"], losses[f"heatmap_bce{i}"] = junc_ce, heat_bce
+                total = total + (float(conf["junction_weight"]) * junc_ce
+                                 + float(conf["heatmap_weight"]) * heat_bce) / 2.0
+            nll_w = float(conf.get("desc_nll_weight", 0.0))
+            if nll_w > 0:
+                kp0, kp1 = data["gt_keypoints0"], data["gt_keypoints1"]
+                v0, v1 = data["gt_keypoint_valid0"], data["gt_keypoint_valid1"]
+                ident = torch.arange(kp0.shape[1], device=kp0.device).expand(v0.shape)
+                m = torch.where(v0 & v1, ident, -1)
+                d0 = sample_descriptors(pred["descriptors_dense0"], kp0, stride=4)
+                d1 = sample_descriptors(pred["descriptors_dense1"], kp1, stride=4)
+                t = float(conf.get("desc_nll_temp", 0.1))
+                nll = 0.5 * (nll_desc_loss(d0, d1, m, temperature=t, valid0=v0)
+                             + nll_desc_loss(d1, d0, m, temperature=t, valid0=v1))
+                losses["desc_nll"] = nll
+                total = total + nll_w * nll
+            losses["total"] = total
+            return losses, {}
+        junc_ce, heat_bce = self._single_view_loss(
+            pred["junction_logits"], pred["line_heatmap"], data.get("lines", data.get("gt_segments")),
+            data.get("valid_lines", data.get("gt_segment_valid")))
+        total = float(conf["junction_weight"]) * junc_ce + float(conf["heatmap_weight"]) * heat_bce
+        metrics = {}
+        if "valid_lines" in pred:
+            metrics["num_lines"] = pred["valid_lines"].sum(-1).float()
+        return {"total": total, "junction_ce": junc_ce, "heatmap_bce": heat_bce}, metrics
+
+    def _single_view_loss(self, jl: torch.Tensor, heat: torch.Tensor, lines: torch.Tensor,
+                          lvalid: torch.Tensor | None):
+        """(junction cell CE (B,), heatmap BCE (B,)) of one view against its
+        ground-truth segments (B, L, 2, 2)."""
+        g = int(self.conf["grid_size"])
+        b, hc, wc, _ = jl.shape
+        h, w = heat.shape[1:3]
+        if lvalid is None:
+            lvalid = torch.ones(lines.shape[:2], dtype=torch.bool, device=lines.device)
+        ends = lines.reshape(b, -1, 2)
+        evalid = lvalid.repeat_interleave(2, dim=1)
+        ex = ends[..., 0].round().to(torch.int64).clamp(0, w - 1)
+        ey = ends[..., 1].round().to(torch.int64).clamp(0, h - 1)
+        n_cells = hc * wc
+        cell = torch.where(evalid, (ey // g) * wc + ex // g, n_cells)  # n_cells: dropped
+        inner = (ey % g) * g + ex % g
+        # the last valid endpoint of each cell writes its target (XLA's scatter
+        # order); a max over endpoint indices picks it on any device
+        order = torch.arange(ends.shape[1], device=ends.device).expand(b, -1)
+        last = torch.full((b, n_cells + 1), -1, dtype=torch.int64, device=ends.device)
+        last = last.scatter_reduce(1, cell, order, "amax")[:, :n_cells]
+        tgt = torch.where(last >= 0, inner.gather(1, last.clamp_min(0)), g * g)
+        logp = torch.log_softmax(jl.reshape(b, n_cells, -1), dim=-1)
+        junc_ce = -logp.gather(-1, tgt[..., None])[..., 0].mean(dim=1)
+
+        s = 64
+        t = torch.linspace(0.0, 1.0, s, dtype=lines.dtype, device=lines.device)[None, None, :, None]
+        pts = lines[:, :, None, 0] + (lines[:, :, 1] - lines[:, :, 0])[:, :, None] * t
+        xi = pts[..., 0].round().to(torch.int64).clamp(0, w - 1)
+        yi = pts[..., 1].round().to(torch.int64).clamp(0, h - 1)
+        vals = lvalid[:, :, None].expand(pts.shape[:3]).reshape(b, -1).to(heat.dtype)
+        mask_on = torch.zeros(b, h * w, dtype=heat.dtype, device=heat.device).scatter_reduce(
+            1, (yi * w + xi).reshape(b, -1), vals, "amax")
+        mask_on = max_pool_2d(mask_on.reshape(b, h, w), 2).reshape(b, h * w)
+        hflat = heat.reshape(b, h * w).clamp(1e-6, 1 - 1e-6)
+        pw = float(self.conf["loss"]["pos_weight"])
+        bce = -(pw * mask_on * torch.log(hflat) + (1.0 - mask_on) * torch.log(1.0 - hflat))
+        return junc_ce, bce.mean(dim=1) / (1.0 + pw) * 2.0
 
 
 __main_model__ = SOLD2

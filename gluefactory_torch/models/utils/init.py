@@ -6,7 +6,10 @@ Kernels are ``lecun_normal``, flax's ``variance_scaling(1, "fan_in",
 "truncated_normal")``: a normal truncated at two standard deviations,
 rescaled so that the truncated draw has standard deviation 1/sqrt(fan_in);
 fan_in is the input width of a dense layer and kh*kw*c_in of a
-convolution. Biases start at zero."""
+convolution. Biases start at zero. A layer built with
+``kernel_init=zeros`` starts at zero (``zeros_reset_``), and a parameter
+drawn from ``normal(stddev)`` is a plain normal of that standard deviation
+(``normal_``)."""
 
 from __future__ import annotations
 
@@ -40,3 +43,18 @@ def flax_reset_(layer: torch.nn.Module) -> None:
     if layer.bias is not None:
         with torch.no_grad():
             layer.bias.zero_()
+
+
+def zeros_reset_(layer: torch.nn.Module) -> None:
+    """A ``Linear`` or ``Conv2d`` whose flax counterpart has
+    ``kernel_init=zeros``: kernel and bias zero."""
+    with torch.no_grad():
+        layer.weight.zero_()
+        if layer.bias is not None:
+            layer.bias.zero_()
+
+
+def normal_(weight: torch.Tensor, stddev: float) -> torch.Tensor:
+    """Fill ``weight`` in place as flax's ``initializers.normal(stddev)``."""
+    with torch.no_grad():
+        return weight.normal_(0.0, stddev)

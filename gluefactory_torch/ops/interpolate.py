@@ -7,13 +7,20 @@ from __future__ import annotations
 import torch
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def bilinear_sample(fmap: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Sample fmap (B, H, W, C) at (x, y) points (B, N, 2) -> (B, N, C).
     (0, 0) is the center of the top-left pixel; coordinates outside the map
-    are clamped to its border."""
+    are clamped to its border. The clamp is ``jnp.clip``'s: a point exactly on
+    the border passes half its gradient, as JAX's max and min split a tie
+    (the deformable convolutions' zero-initialised offsets put whole rows of
+    samples there)."""
     b, h, w, c = fmap.shape
-    x = points[..., 0].clamp(0.0, w - 1.0)
-    y = points[..., 1].clamp(0.0, h - 1.0)
+    x = _clip(points[..., 0], 0.0, w - 1.0)
+    y = _clip(points[..., 1], 0.0, h - 1.0)
     x0 = x.floor().long().clamp(0, w - 2)
     y0 = y.floor().long().clamp(0, h - 2)
     fx = (x - x0.to(x.dtype))[..., None]

@@ -849,6 +849,116 @@ def gluestick_train_homography_conf() -> dict:
     }
 
 
+# --- JPLDD's and SOLD2's training --------------------------------------------------
+
+_SHAPES_ENGINE = {  # the on-device synthetic-shapes engine as the four recipes set it
+    "name": "synthetic_shapes_ondevice",
+    "pool_size": 512,
+    "val_pool_size": 48,
+    "source_size": [448, 448],
+    "image_size": 320,
+    "max_segments": 48,
+    "max_vertices": 96,
+    "train_batch_size": 8,
+    "val_batch_size": 8,
+    "steps_per_epoch": 250,
+    "val_steps": 4,
+    "homography": {"difficulty": 0.6, "translation": 0.3, "max_angle": 35.0},
+    "photometric": {"p": 0.9, "strength": 1.0},
+}
+_JPLDD_TRAIN = {"optimizer": "adam", "lr": 3.0e-4, "eval_every_iter": 250,
+                "save_every_iter": 1000, "log_every_iter": 50, "keep_last_checkpoints": 3,
+                "clip_grad": 5.0, "best_key": "loss/total"}
+
+
+def jpldd_ondevice_conf(structured: bool = False) -> dict:
+    """``jpldd_ondevice.yaml`` (``structured``: ``jpldd_ondevice_structured.yaml``):
+    JPLDD's phase A from its initialisation on the on-device shapes engine
+    (512 + 48 drawn scenes at 448x448, 320-pixel views, batch 8; the
+    structured one on the benchmarks' scene family) with the focal heatmap
+    loss; the recipes of ``jpldd_tpu_stage0`` and ``jpldd_tpu_structured``."""
+    data = copy.deepcopy(_SHAPES_ENGINE)
+    if structured:
+        data["scene_family"] = "structured"
+    return copy.deepcopy({
+        "data": data,
+        "model": {"name": "extractors.joint_point_line_extractor", "max_num_keypoints": 512,
+                  "detection_threshold": 0.0, "extract_lines": False,
+                  "loss": {"heatmap": "focal", "pos_weight": 100.0}},
+        "train": {"seed": 43 if structured else 5, "epochs": 16 if structured else 24,
+                  **_JPLDD_TRAIN,
+                  "lr_schedule": {"type": "exp", "start": 2500, "exp_div_10": 6000}}})
+
+
+def jpldd_desc_stage_conf(structured: bool = False) -> dict:
+    """``jpldd_desc_stage.yaml`` (``structured``: ``jpldd_desc_stage_structured.yaml``):
+    JPLDD's phase B, the SDDH head alone (everything else at a zero update
+    scale) trained by the keypoint InfoNCE over mutual detections on the
+    homography engine (768 + 64 scenes, batch 16, grey views tiled to the
+    trunk's 3 channels), from phase A's blob: ``JPLDD_WEIGHTS['structured']``,
+    as the structured YAML names it, or ``JPLDD_WEIGHTS['stage0']``, the
+    export of the run ``jpldd_tpu_stage0`` that the other names and that is
+    not committed; the recipes of ``jpldd_tpu_structured_descB`` and
+    ``jpldd_tpu_stage1_desc``."""
+    return copy.deepcopy({
+        "data": {"name": "homographies_ondevice", "pool_size": 768, "val_pool_size": 64,
+                 "source_size": [448, 448], "image_size": 320, "max_gt_points": 192,
+                 "train_batch_size": 16, "val_batch_size": 16, "steps_per_epoch": 250,
+                 "val_steps": 4,
+                 "homography": {"difficulty": 0.7, "translation": 0.3, "max_angle": 45.0},
+                 "photometric": {"p": 0.95, "strength": 1.0}},
+        "model": {"name": "two_view_pipeline",
+                  "extractor": {"name": "extractors.joint_point_line_extractor",
+                                "max_num_keypoints": 512, "detection_threshold": 0.0,
+                                "extract_lines": False, "input_channels": 3,
+                                "loss": {"desc_nll_weight": 1.0, "desc_nll_temp": 0.1,
+                                         "desc_match_th": 3.0}}},
+        "train": {"seed": 47 if structured else 17, "epochs": 16, **_JPLDD_TRAIN,
+                  "lr_schedule": {"type": "exp", "start": 1500, "exp_div_10": 6000},
+                  "lr_scaling": [[0.0, ["block", "agg_conv", "kp1", "kp2", "kp3", "df1", "df2",
+                                        "df3", "af1", "af3", "backbone"]]],
+                  "load_experiment": JPLDD_WEIGHTS["structured" if structured else "stage0"]}})
+
+
+def jpldd_train_synthetic_conf() -> dict:
+    """``jpldd_train_synthetic.yaml``: JPLDD from its initialisation on the
+    host shapes dataset (320-pixel views, batch 8, 8 loader processes)."""
+    return {"data": {"name": "synthetic_shapes", "image_size": 320, "train_batch_size": 8,
+                     "num_workers": 8},
+            "model": {"name": "extractors.joint_point_line_extractor",
+                      "max_num_keypoints": 512, "detection_threshold": 0.0},
+            "train": {"seed": 0, "epochs": 20, "lr": 3.0e-4, "log_every_iter": 100,
+                      "eval_every_iter": 1000}}
+
+
+def sold2_train_pairs_conf() -> dict:
+    """``sold2_train_pairs.yaml``: SOLD2 from its initialisation on the
+    two-view shapes engine (structured scenes, batch 16): each view's
+    junction CE and heatmap BCE, and the dense descriptors' InfoNCE over the
+    shared vertices; the recipe of ``sold2_tpu_stage0``."""
+    return copy.deepcopy({
+        "data": {**_SHAPES_ENGINE, "name": "synthetic_shapes_ondevice_pairs",
+                 "scene_family": "structured", "train_batch_size": 16, "val_batch_size": 16},
+        "model": {"name": "two_view_pipeline",
+                  "extractor": {"name": "lines.sold2", "sparse_outputs": False,
+                                "loss": {"junction_weight": 1.0, "heatmap_weight": 1.0,
+                                         "pos_weight": 100.0, "desc_nll_weight": 1.0,
+                                         "desc_nll_temp": 0.1}}},
+        "train": {"seed": 29, "epochs": 24, **_JPLDD_TRAIN, "lr": 0.0005,
+                  "lr_schedule": {"type": "exp", "start": 2000, "exp_div_10": 6000}}})
+
+
+def jpldd_eval_conf() -> dict:
+    """``jpldd_eval.yaml``: JPLDD's model card, 512 keypoints matched by the
+    NN point-line matcher, with its HPatches-lines section."""
+    return copy.deepcopy({
+        "model": {"name": "two_view_pipeline",
+                  "extractor": {"name": "extractors.joint_point_line_extractor",
+                                "max_num_keypoints": 512},
+                  "matcher": {"name": "matchers.nn_point_line"}},
+        "benchmarks": _REP_THRESHOLDS})
+
+
 # --- SIFT-feature training on the cached-feature engine -----------------------------
 
 LG_SIFT_STAGE1_WEIGHTS = WEIGHTS_PATH / "lg_sift_stage1.f16.msgpack"  # LightGlue stage 1, SIFT
@@ -988,18 +1098,73 @@ SOLD2_WEIGHTS = "weights/sold2_tpu_stage0.f16.msgpack"
 _LSD_LBD = {"name": "two_view_pipeline",
             "extractor": {"name": "lines.lsd", "max_num_lines": 256, "describe": "lbd"},
             "matcher": {"name": "matchers.line_matcher_lbd", "score_th": 0.1}}
-# the blob's model conf holds its training loss (desc_nll_weight 1.0), which the
-# port refuses (SOLD2's training is not ported); inference does not read it, so the
-# recipes set the default back over it
 _SOLD2 = {"name": "lines.sold2", "max_num_lines": 512, "max_num_junctions": 250,
-          "sparse_outputs": True, "loss": {"desc_nll_weight": 0.0}}
+          "sparse_outputs": True}
 _SOLD2_WUNSCH = {"name": "two_view_pipeline", "extractor": _SOLD2,
                  "matcher": {"name": "matchers.wunsch_line_matcher", "num_samples": 8,
                              "desc_stride": 4}}
+# JPLDD's blobs: phase A on the shapes engine and on the structured scenes, and
+# each one's phase B (the SDDH head trained alone, under ['extractor'])
+JPLDD_WEIGHTS = {name: f"weights/jpldd_tpu_{name}.f16.msgpack"
+                 for name in ("stage0", "stage1_desc", "structured", "structured_descB")}
+_JPLDD_NN = {"name": "two_view_pipeline",
+             "extractor": {"name": "extractors.joint_point_line_extractor",
+                           "max_num_keypoints": 512, "extract_lines": True,
+                           "detection_threshold": 0.005},
+             "matcher": {"name": "matchers.nn_point_line"}}
+_REP_THRESHOLDS = {"hpatches_lines": {"eval": {"rep_thresholds": [1.0, 3.0, 5.0]}}}
+
+
+def _jpldd_extended(blob: str, famb: bool = False, benchmarks: bool = False) -> dict:
+    """JPLDD with POLD2's lines and the NN point-line matcher on the extended
+    HPatches benchmark (RANSAC on the point matches)."""
+    conf = {"model": _JPLDD_NN, "checkpoint": JPLDD_WEIGHTS[blob]}
+    if famb:
+        conf["data"] = {"data_dir": "hpatches-b"}
+    if benchmarks:  # the card's sections, carried by some of the committed confs
+        conf["benchmarks"] = _REP_THRESHOLDS
+    return conf
+
+
+def _jpldd_lines(blob: str, wunsch: bool = False, **extractor) -> dict:
+    """JPLDD's lines on the HPatches-lines benchmark, matched by the NN
+    point-line matcher (which matches no JPLDD line: JPLDD has no dense
+    descriptors) or by the Wunsch matcher on SDDH's descriptors at 8
+    samples a line. The committed confs' ``max_num_lines`` is not a JPLDD
+    key (POLD2 keeps its 512 slots)."""
+    ext = {**_JPLDD_NN["extractor"], "max_num_lines": 256, **extractor}
+    model = {**_JPLDD_NN, "extractor": ext}
+    if wunsch:
+        ext["line_desc_samples"] = 8
+        model["matcher"] = {"name": "matchers.wunsch_line_matcher", "min_score": 0.1}
+    conf = {"model": model, "checkpoint": JPLDD_WEIGHTS[blob]}
+    if not wunsch:
+        conf["benchmarks"] = _REP_THRESHOLDS
+    return conf
+
+
 # each benchmark's confs, named after the committed outputs/results/<benchmark>/<name>
 # (each a model and its checkpoint; the data and eval sections are the pipeline's)
 LINE_CONFS = {
+    "hpatches_extended": {
+        "gluestick_stage0_hybrid": hpatches_extended_gluestick_conf(),
+        "jpldd_stage0": _jpldd_extended("stage0", benchmarks=True),
+        "jpldd_stage1_desc": _jpldd_extended("stage1_desc", benchmarks=True),
+        "jpldd_stage1_desc_famb": _jpldd_extended("stage1_desc", famb=True, benchmarks=True),
+        "jpldd_structured_phaseA": _jpldd_extended("structured"),
+        "jpldd_structured_descB": _jpldd_extended("structured_descB"),
+        "jpldd_structured_descB_famb": _jpldd_extended("structured_descB", famb=True),
+    },
     "hpatches_lines": {
+        "jpldd_stage0": _jpldd_lines("stage0"),
+        "jpldd_stage0_320": {**_jpldd_lines("stage0"),
+                             "data": {"preprocessing": {"resize": 320}}},
+        "jpldd_stage0_tuned": _jpldd_lines(
+            "stage0", detection_threshold=0.003,
+            line_extractor={"fine_inlier_ratio": 0.85, "coarse_inlier_ratio": 0.8,
+                            "mean_df_th": 2.0, "df_inlier_th": 2.5, "use_angle_field": True}),
+        "jpldd_structured_wunsch": _jpldd_lines("structured", wunsch=True),
+        "jpldd_structured_descB_wunsch": _jpldd_lines("structured_descB", wunsch=True),
         "lsd_lines": {"model": {"name": "two_view_pipeline",
                                 "extractor": {"name": "lines.lsd", "max_num_lines": 256}}},
         "lsd_lbd": {"model": _LSD_LBD},

@@ -154,7 +154,8 @@ def _operator(kind: str, src: int, dst: int) -> tuple[np.ndarray | None, np.ndar
     sample; a Gaussian blur ('gaussian<ksize>') as (None, its dense matrix).
     The arrays are read-only: every caller shares them."""
     if kind.startswith("gaussian"):
-        out = (None, _reflect101_filter(src, _gaussian_kernel(int(kind[8:]))))
+        ksize, _, sigma = kind[8:].partition("_")
+        out = (None, _reflect101_filter(src, _gaussian_kernel(int(ksize), float(sigma or 0))))
     else:
         weights = _WEIGHTS[kind](src, dst)
         taps = int((weights != 0).sum(1).max())
@@ -250,9 +251,13 @@ def resize(image: np.ndarray, size: tuple[int, int], interpolation: str) -> np.n
     return _separable(image, interpolation, size)
 
 
-def _gaussian_kernel(ksize: int) -> np.ndarray:
-    """``cv2.getGaussianKernel(ksize, 0)``: the fixed small kernels up to 9
-    taps, else sigma = 0.3 * ((ksize - 1) / 2 - 1) + 0.8."""
+def _gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """``cv2.getGaussianKernel(ksize, sigma)``: for sigma <= 0 the fixed small
+    kernels up to 9 taps, else sigma = 0.3 * ((ksize - 1) / 2 - 1) + 0.8."""
+    if sigma > 0:
+        x = np.arange(ksize) - (ksize - 1) / 2
+        kernel = np.exp(-0.5 / (sigma * sigma) * x * x)
+        return kernel / kernel.sum()
     small = {1: [1.0], 3: [0.25, 0.5, 0.25], 5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
              7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
              9: [v / 256 for v in (4, 13, 30, 51, 60, 51, 30, 13, 4)]}
@@ -277,11 +282,12 @@ def _reflect101_filter(n: int, kernel: np.ndarray) -> np.ndarray:
     return matrix
 
 
-def gaussian_blur(image: np.ndarray, ksize: int) -> np.ndarray:
-    """``cv2.GaussianBlur(image, (ksize, ksize), 0)`` of a float image, in
+def gaussian_blur(image: np.ndarray, ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """``cv2.GaussianBlur(image, (ksize, ksize), sigma)`` of a float image, in
     its own type (float64 stays float64, anything else is float32)."""
     dtype = np.float64 if image.dtype == np.float64 else np.float32
-    return _separable(image, f"gaussian{ksize}", (image.shape[1], image.shape[0]), dtype)
+    kind = f"gaussian{ksize}" + (f"_{float(sigma)!r}" if sigma > 0 else "")
+    return _separable(image, kind, (image.shape[1], image.shape[0]), dtype)
 
 
 def warp_perspective(image: np.ndarray, H: np.ndarray, size: tuple[int, int]) -> np.ndarray:

@@ -22,7 +22,8 @@ PORTED = ["extractors.superpoint", "matchers.lightglue", "matchers.homography_ma
           "matchers.match_refiner", "two_view_pipeline", "extractors.sift",
           "matchers.superglue", "matchers.nearest_neighbor_matcher", "matchers.adalam",
           "matchers.depth_matcher", "matchers.oracle_matcher", "lines.lsd", "lines.wireframe",
-          "matchers.gluestick"]
+          "matchers.gluestick", "lines.sold2", "extractors.joint_point_line_extractor",
+          "lines.pold2_extractor", "matchers.nn_point_line"]
 
 
 def _leaves(conf: dict, prefix: str = "") -> dict:
@@ -89,9 +90,9 @@ def test_unported_keys_refuse_any_other_value(name):
     ("matchers.lightglue", {"loss": {"nll_balancing": 0.25}}),
     ("matchers.lightglue", {"loss": {"fn": "focal"}}),
     ("extractors.superpoint", {"dtype": "int8"}),
-    # LBD is ported (tests/test_torch_line_models.py): SOLD2's loss and timeit stay
-    # refused
-    ("lines.sold2", {"loss": {"desc_nll_weight": 1.0}}),
+    # LBD and SOLD2's loss are ported (tests/test_torch_line_models.py,
+    # tests/test_torch_shapes_train.py): timeit stays refused
+    ("lines.sold2", {"timeit": True}),
     ("matchers.gluestick", {"timeit": True}),
 ])
 def test_refused_settings_name_the_key(name, conf):
@@ -132,6 +133,9 @@ def test_recipes_still_build():
     ("matchers.depth_matcher", {"use_lines": True, "line_dist_th": 3.0}),
     ("matchers.homography_matcher", {"use_lines": True, "line_overlap_th": 0.3}),
     ("matchers.gluestick", {"checkpointed": True, "loss": {"inter_weight": 1.0}}),
+    ("lines.sold2", {"loss": {"desc_nll_weight": 1.0}}),
+    ("extractors.joint_point_line_extractor",
+     {"extract_lines": True, "line_desc_samples": 8, "loss": {"heatmap": "focal"}}),
 ])
 def test_ported_switches_build(name, conf):
     """The keys this slice ported left ``unported_conf`` and build."""

@@ -21,6 +21,7 @@ import torch
 import chip_smoke
 import chip_smoke_gluestick
 import chip_smoke_lines
+import chip_smoke_jpldd
 import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):

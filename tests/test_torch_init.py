@@ -109,3 +109,33 @@ def test_trainer_draws_under_its_seed():
     conf["train"]["seed"] = 8
     c = Trainer(conf, device="cpu").model.state_dict()
     assert not torch.equal(a["extractor.convPa.weight"], c["extractor.convPa.weight"])
+
+
+def test_jpldd_draws_flaxs_zero_and_normal_initialisers():
+    """JPLDD at full width: the deformable convolutions' offset convs and
+    SDDH's offset layer start at zero (flax's ``kernel_init=zeros``), SDDH's
+    ``agg`` is drawn as flax's ``normal(0.02)`` (its standard deviation
+    against the pooled flax draws), every other layer as ``lecun_normal``."""
+    model = build_model("extractors.joint_point_line_extractor", {}, device="cpu")
+    zero = {n for n, _ in _layers(model) if n.endswith("offset") and "offset_hidden" not in n}
+    assert zero == {"block3.dcn1.offset", "block3.dcn2.offset", "block4.dcn1.offset",
+                    "block4.dcn2.offset", "desc_head.offset"}
+    for lname, layer in _layers(model):
+        w = layer.weight.detach().numpy()
+        if lname in zero:
+            assert not w.any() and not layer.bias.detach().numpy().any(), lname
+        else:
+            std = 1.0 / math.sqrt(layer.weight[0].numel())
+            assert w.std() > 0.5 * std and np.abs(w).max() <= 2.0 * std / TRUNCATED_STD * (1 + 1e-6)
+    agg = model.desc_head.agg
+    torch.manual_seed(0)
+    draws = []
+    for _ in range(max(1, SAMPLES // agg.numel())):
+        model.desc_head.reset_parameters()
+        draws.append(agg.detach().numpy().ravel().copy())
+    port = np.concatenate(draws)
+    keys = jax.random.split(jax.random.key(0), len(draws))
+    flax_draws = np.asarray(jax.vmap(lambda k: nn.initializers.normal(0.02)(
+        k, tuple(agg.shape)))(keys)).ravel()
+    assert abs(port.std() / 0.02 - 1.0) <= STD_RTOL and abs(flax_draws.std() / 0.02 - 1.0) <= STD_RTOL
+    assert abs(port.mean()) <= 0.02 * 0.02 and np.abs(port).max() > 4 * 0.02  # not truncated

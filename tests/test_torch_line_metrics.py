@@ -384,17 +384,18 @@ def link_jpg(src: Path, dst: Path) -> None:
             os.symlink(ppm, target)
 
 
-def reference(side: str, root: Path, out: Path, runs, seeds) -> None:
-    """Print one JSON line of summaries a (run, RANSAC seed): the JAX
-    package's, or the port's on the CPU. The later seeds rescore the first
-    one's predictions (only runs that match lines use RANSAC)."""
+def reference(side: str, root: Path, out: Path, runs, seeds, table=None) -> None:
+    """Print one JSON line of summaries a (run, RANSAC seed) of ``table``
+    (phase 20's LINE_RUNS by default): the JAX package's, or the port's on
+    the CPU. The later seeds rescore the first one's predictions (only runs
+    that match lines use RANSAC)."""
     import importlib
     import json
     import time
 
     import chip_smoke_lines as CL
 
-    for run, bench, name, which in CL.LINE_RUNS:
+    for run, bench, name, which in table or CL.LINE_RUNS:
         if runs and run not in runs:
             continue
         conf = phase20_conf(root, bench, name, which, side)

@@ -263,7 +263,7 @@ def test_megadepth1500_extended_run_eval_is_jaxs(tmp_path):
 REFERENCE_KEYS = {
     "hpatches": ("H_error_ransac_mAA", "mprec@1px", "mnum_keypoints", "mnum_matches"),
     "hpatches_extended": ("H_error_ransac_mAA", "mprec@1px", "mnum_keypoints", "mnum_matches",
-                          "mline_repeatability", "mline_match_precision",
+                          "mkp_repeatability", "mline_repeatability", "mline_match_precision",
                           "mnum_line_matches"),
     "eth3d": ("AP", "AP_lines", "mnum_matches"),
     "megadepth1500_extended": ("rel_pose_error_mAA", "mnum_matches", "mline_epi_prec@1e-03",
@@ -284,7 +284,7 @@ def phase18_runs(root: Path) -> list[tuple]:
     hp = root / "hpatches"
     runs = [("famA", "hpatches", R.hpatches_gluestick_conf(), {"data_dir": str(hp / "famA")}),
             ("famB", "hpatches", R.hpatches_gluestick_famb_conf(refine=True),
-             {"data_dir": str(hp / "famB")}),
+             {"data_dir": str(hp / "famB"), "max_seqs": 8}),
             ("famA_extended", "hpatches_extended", R.hpatches_extended_gluestick_conf(),
              {"data_dir": str(hp / "famA"), "max_seqs": 8}),
             ("eth3d", "eth3d", R.eth3d_gluestick_conf(),

@@ -265,11 +265,14 @@ def test_unported_options_raise():
     # adaptive depth and width (tests/test_torch_adaptive.py), add_scale_ori
     # (test_lightglue_scale_ori_matches_jax), the refiner's static mode
     # (tests/test_torch_refiner_modes.py), the line ground truth
-    # (tests/test_torch_line_gt.py) and LBD descriptors (tests/test_torch_line_models.py)
-    # are ported; SOLD2's loss is not
+    # (tests/test_torch_line_gt.py), LBD descriptors (tests/test_torch_line_models.py)
+    # and SOLD2's loss (tests/test_torch_shapes_train.py) are ported; JPLDD's
+    # backbone_encoder trunks are not
     build_model("matchers.lightglue", {"add_scale_ori": True}, device="cpu")
     build_model("matchers.match_refiner", {"window_sampling": "static"}, device="cpu")
     build_model("matchers.depth_matcher", {"use_lines": True}, device="cpu")
     build_model("lines.lsd", {"describe": "lbd"}, device="cpu")
+    build_model("lines.sold2", {"loss": {"desc_nll_weight": 1.0}}, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model("lines.sold2", {"loss": {"desc_nll_weight": 1.0}}, device="cpu")
+        build_model("extractors.joint_point_line_extractor", {"backbone": {"name": "vgg_unet"}},
+                    device="cpu")

@@ -9,6 +9,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
 RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "chip_smoke_lines.py",
+                 "chip_smoke_jpldd.py", "weights/jpldd_tpu_stage0.f16.msgpack",
+                 "weights/jpldd_tpu_stage1_desc.f16.msgpack",
+                 "weights/jpldd_tpu_structured.f16.msgpack",
+                 "weights/jpldd_tpu_structured_descB.f16.msgpack",
                  "weights/lg_tpu_stage2.f16.msgpack",
                  "weights/lg5_init_spsoft.f16.msgpack", "weights/sp_tpu_stage0b.f16.msgpack",
                  "weights/sg_sift_stage1.f16.msgpack", "weights/lg_sift_stage2.f16.msgpack",
@@ -74,14 +78,15 @@ def test_runtime_files_are_sent_to_the_gpu_machine():
 def _chip_recipes() -> list[str]:
     """The recipes of gluefactory_torch.recipes that chip_smoke.py runs (its
     GlueStick phases from chip_smoke_gluestick.py, its line benchmarks from
-    chip_smoke_lines.py)."""
+    chip_smoke_lines.py, JPLDD from chip_smoke_jpldd.py)."""
     import re
 
     from gluefactory_torch import recipes
 
     text = "".join((ROOT / name).read_text() for name in ("chip_smoke.py",
                                                           "chip_smoke_gluestick.py",
-                                                          "chip_smoke_lines.py"))
+                                                          "chip_smoke_lines.py",
+                                                          "chip_smoke_jpldd.py"))
     return sorted({name for name in re.findall(r"\b(\w+_conf)\(\)", text)
                    if callable(getattr(recipes, name, None))})
 
@@ -110,8 +115,9 @@ def _line_confs() -> list[str]:
 
 @pytest.mark.parametrize("name", _line_confs())
 def test_line_confs_read_blobs_the_gpu_machine_gets(name, tracked):
-    """Each line benchmark's conf (phase 20 runs them all) names only blobs
-    that are tracked and sent to the GPU machine: SOLD2's among them."""
+    """Each line benchmark's conf (phases 20 and 21 run them or read their
+    blobs) names only blobs that are tracked and sent to the GPU machine:
+    SOLD2's and JPLDD's among them."""
     from gluefactory_torch.recipes import line_conf
 
     path = line_conf(*name.split("/")).get("checkpoint")

@@ -30,7 +30,8 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      path must agree, and the medians must pass the JAX gate's four bounds
      (flagship.GATE);
   5. probe: the kernel probe entry point (scripts/kernel_probe.py) in a
-     subprocess, both workers executed and ok; K3 (elementwise add) held
+     subprocess started after phase 2, which runs beside phases 3-4, both
+     workers executed and ok; K3 (elementwise add) held
      bit-exact against x + y, timed beside torch.add and an empty kernel;
   6. gradients: autograd through the kernels' Functions against autograd
      through the plain versions at the flagship shape, float32 and bfloat16;
@@ -64,7 +65,8 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      evaluations, checkpoint_best and a --restore, and stage 0 from scratch for 8
      steps (see check_sp_training);
  12. adaptive LightGlue (recipes.hpatches_adaptive_conf: depth 0.95, width 0.99) on
-     phase 8's sets: summaries and exit layers held to the JAX package's, K1/K2
+     the first 8 sequences of phase 8's sets: summaries (the mAA to the band of JAX's
+     RANSAC seeds 0-2) and exit layers held to the JAX package's, K1/K2
      launched 2 (exit layer + 1) times a pair, host reads a pair counted (see
      check_adaptive);
  13. LightGlue stage 4 (recipes.stage4_conf) on the cached-feature engine at full
@@ -83,9 +85,9 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      the CPU on gate views; (b) the JAX gates for SIFT+SuperGlue
      (weights/sg_sift_stage1), SIFT+LightGlue (weights/lg_sift_stage2) and
      SuperPoint stage 0b + NN on their 6 pairs, kernel path against plain path;
-     (c) SIFT+SuperGlue on phase 8's famA and famB's first 8 sequences (2048 slots,
-     9 layers, Sinkhorn 50, the RANSAC sweep) held to the JAX package's summaries
-     (famB's mAA to the band of JAX's RANSAC seeds 0-2), 36 K2 launches
+     (c) SIFT+SuperGlue on the first 8 sequences of phase 8's famA and famB (2048
+     slots, 9 layers, Sinkhorn 50, the RANSAC sweep) held to the JAX package's
+     summaries (the mAA to the band of JAX's RANSAC seeds 0-2), 36 K2 launches
      and no K1 a pair, the time of SIFT, SuperGlue and Sinkhorn a pair; (d)
      SIFT+NN and SuperPoint+NN on famA's first 8 sequences against JAX's;
  16. SIFT-feature training (see check_sift_training): (a) the cached engine's SIFT
@@ -155,8 +157,22 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      bit), sold2_train_pairs (3 steps) and jpldd_train_synthetic (2 steps on the host
      dataset), the pools cut to 128 + 16 scenes; (e) ms a pair by stage, step times,
      peak memory.
+ 22. LoFTR at full width (chip_smoke_loftr.py; ResNet-FPN 128/196/256, 4 + 4 coarse
+     and 1 + 1 fine linear-attention layers, the dual-softmax over every pair of
+     coarse cells, 1024 slots, 5x5 fine windows): (a) weights/loftr_tpu_stage0b on
+     the gate's 6 pairs, card against CPU (the coarse confidence, the slots as sets,
+     the refined keypoints); (b) HPatches from the blob at 480 (loftr_stage0b and,
+     with no extractor and the refiner, loftr_stage0b_refine on famA's first 8
+     sequences; loftr_stage0b_famb on famB's) held to the JAX package's summaries on
+     the same sets, ms a pair by stage; (c) loftr_ondevice from the flax-style
+     initialisation (step 0 card against CPU, 2 epochs of 4 steps with evaluations,
+     a --restore), loftr_finetune_fine from weights/loftr_tpu_stage0 (3 steps) and
+     loftr_homography (2 steps on the host dataset), step times and peak memory; (d)
+     no K1 or K2 launch on LoFTR's path.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
-load_model, by the run's name and by its checkpoint_best.ckpt.
+load_model, by the run's name and by its checkpoint_best.ckpt. The sets of
+phases 8, 10 and 17 are rendered on the host in the background from phase 4
+on; each of those phases waits for its own.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Only torch and numpy are needed besides the repository.
@@ -591,35 +607,55 @@ def check_kernels(device):
 # --- phase 5: the kernel probe entry point and K3 ------------------------------
 
 PROBE_TIMEOUT = 300  # seconds for the whole probe (its workers have their own)
+PROBE_OUT = "gluefactory_torch/_build/kernel_probe.json"
 
 
-def check_probe(device):
-    """Run the probe entry point, hold K3 bit-exact against x + y, and time K3
-    at the probe's shape beside an empty kernel, the floor of any launch (K2
-    at the probe's 8x4x1024x64 is timed in phase 3). Returns (K3's JSON-ready
-    dict, the probe's verdict)."""
+def start_probe() -> tuple:
+    """Start the probe entry point in a subprocess: (the process, the file
+    that takes its standard error)."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    out_path = root / PROBE_OUT
+    out_path.unlink(missing_ok=True)  # read only this run's verdict
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gluefactory_torch.scripts.kernel_probe", "--out", str(out_path),
+         "--timeout", "120"], stdout=subprocess.DEVNULL, stderr=err, text=True, cwd=root)
+    return proc, err
+
+
+def check_probe(device, probe: tuple):
+    """Wait for the probe entry point (``start_probe``), hold K3 bit-exact
+    against x + y, and time K3 at the probe's shape beside an empty kernel,
+    the floor of any launch (K2 at the probe's 8x4x1024x64 is timed in phase
+    3). Returns (K3's JSON-ready dict, the probe's verdict)."""
     import torch
 
     from gluefactory_torch.ops import elementwise as E
 
-    root = Path(__file__).resolve().parent
-    out_path = root / "gluefactory_torch/_build/kernel_probe.json"
-    out_path.unlink(missing_ok=True)  # read only this run's verdict
-    proc = subprocess.run(
-        [sys.executable, "-m", "gluefactory_torch.scripts.kernel_probe", "--out", str(out_path),
-         "--timeout", "120"], capture_output=True, text=True, timeout=PROBE_TIMEOUT, cwd=root)
+    out_path = Path(__file__).resolve().parent / PROBE_OUT
+    proc, err = probe
+    try:
+        proc.wait(timeout=PROBE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    err.seek(0)
+    stderr = err.read()
+    err.close()
     if not out_path.exists():
         raise AssertionError(f"kernel probe wrote no verdict (rc {proc.returncode}): "
-                             f"{proc.stderr[-2000:]}")
+                             f"{stderr[-2000:]}")
     verdict = json.loads(out_path.read_text())
     for which in ("tiny", "attention"):
         rec = verdict.get(which, {})
         log(f"  probe {which:9s}: {json.dumps(rec)[:300]}")
         if rec.get("status") != "EXECUTED" or not rec.get("ok"):
             raise AssertionError(f"kernel probe {which}: {rec} (rc {proc.returncode}, "
-                                 f"stderr {proc.stderr[-2000:]})")
+                                 f"stderr {stderr[-2000:]})")
     if proc.returncode != 0:
-        raise AssertionError(f"kernel probe exited {proc.returncode}: {proc.stderr[-2000:]}")
+        raise AssertionError(f"kernel probe exited {proc.returncode}: {stderr[-2000:]}")
     if verdict["tiny"]["launches"] != {"add": 1}:
         raise AssertionError(f"probe tiny launches {verdict['tiny']['launches']}")
 
@@ -900,6 +936,34 @@ def render_sets(root: Path) -> float:
     return time.perf_counter() - t
 
 
+_RENDERS: dict = {}  # (renderer name, root) -> the future of a background render
+
+
+def start_renders(jobs) -> None:
+    """Start each (renderer, root) of ``jobs`` in one background thread, one
+    after another (each renderer runs its own worker processes), so that the
+    early phases' device work hides them; ``rendered`` then waits for one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1, thread_name_prefix="render")
+    for fn, root in jobs:
+        _RENDERS[(fn.__name__, Path(root))] = pool.submit(fn, Path(root))
+    pool.shutdown(wait=False)
+
+
+def rendered(fn, root: Path) -> tuple[float, float, str]:
+    """(seconds ``fn(root)`` took, seconds the caller spent on it, how) : the
+    background render's when ``start_renders`` began one, else rendered now."""
+    t = time.perf_counter()
+    future = _RENDERS.pop((fn.__name__, Path(root)), None)
+    if future is None:
+        seconds = fn(root)
+        return seconds, seconds, "now"
+    seconds = future.result()
+    waited = time.perf_counter() - t
+    return seconds, waited, f"in the background, waited {waited:.1f} s for it"
+
+
 STAGE_PAIRS = 20  # famA pairs whose forward is timed stage by stage
 
 
@@ -967,14 +1031,14 @@ def check_hpatches(device, root: Path):
     from gluefactory_torch.ops import attention as A
     from gluefactory_torch.recipes import hpatches_flagship_conf
 
-    render_s = render_sets(root)
+    render_s, spent, where = rendered(render_sets, root)
     n_seqs = sum(s["num_seqs"] + s["illum_seqs"] for s in HPATCHES_SETS.values())
     log(f"  rendered {n_seqs} sequences of 640x480 in {render_s:.1f} s ({RENDER_WORKERS} "
-        "processes)")
+        f"processes, {where})")
     conf = hpatches_flagship_conf()
     model = load_model(conf["model"], conf["checkpoint"], device)
     launches = {"attention_rotary": 0, "attention": 0}
-    report = {"render_s": render_s}
+    report = {"render_s": spent}
     failures = []
     for name, spec in HPATCHES_SETS.items():
         pipeline = HPatchesPipeline(merge(conf, {"data": {"data_dir": str(root / name)}}),
@@ -1410,13 +1474,13 @@ def check_pose(device, root: Path):
     from gluefactory_torch.ops import attention as A
     from gluefactory_torch.recipes import pose_flagship_conf
 
-    render_s = render_pose_set(root)
+    render_s, _, where = rendered(render_pose_set, root)
     conf = merge(pose_flagship_conf(), {"data": {"pairs": str(root / "pairs_calibrated.txt"),
                                                   "root": str(root / "images")}})
     pipeline = MegaDepth1500Pipeline(conf, device=device)
     n_pairs = len(pipeline.dataset)
     log(f"  rendered {n_pairs} pairs of 640x480 in {render_s:.1f} s ({RENDER_WORKERS} "
-        "processes)")
+        f"processes, {where})")
     model = load_model(conf["model"], conf["checkpoint"], device)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1650,17 +1714,22 @@ def check_sp_training(device, root: Path) -> dict:
 
 # --- phase 12: adaptive LightGlue on the HPatches sets -------------------------------------
 
-# The JAX package's adaptive summaries, exit layers and pruned shares on the same sets
-# (the sets of phase 8): JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_adaptive.py
-# --sets famA=... famB=..., the conf of phase 8 with depth_confidence 0.95 and
-# width_confidence 0.99 (recipes.hpatches_adaptive_conf), RANSAC seed 0, on the CPU
+# The JAX package's adaptive summaries, exit layers and pruned shares on the first
+# ADAPTIVE_SEQS sequences of each of phase 8's sets (40 of their 100 and 150 pairs):
+# JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_adaptive.py --sets
+# famA=... famB=... --max_seqs 8 [--seed N], the conf of phase 8 with depth_confidence
+# 0.95 and width_confidence 0.99 (recipes.hpatches_adaptive_conf), RANSAC seed 0, on the
+# CPU; "maa_seeds": the mAA over JAX's seeds 0-2
+ADAPTIVE_SEQS = 8
 ADAPTIVE_JAX = {
-    "famA": {"summaries": {"H_error_ransac_mAA": 90.126, "mprec@1px": 0.524,
-                           "mnum_keypoints": 892.2, "mnum_matches": 489.92},
-             "exit_histogram": [0, 0, 0, 14, 82, 4], "mean_pruned_share": 0.1117},
-    "famB": {"summaries": {"H_error_ransac_mAA": 94.609, "mprec@1px": 0.824,
-                           "mnum_keypoints": 1024.0, "mnum_matches": 612.747},
-             "exit_histogram": [0, 0, 0, 0, 109, 41], "mean_pruned_share": 0.0297},
+    "famA": {"summaries": {"H_error_ransac_mAA": 89.036, "mprec@1px": 0.539,
+                           "mnum_keypoints": 880.375, "mnum_matches": 483.425},
+             "maa_seeds": [89.036, 88.717, 88.879],
+             "exit_histogram": [0, 0, 0, 8, 30, 2], "mean_pruned_share": 0.1069},
+    "famB": {"summaries": {"H_error_ransac_mAA": 97.085, "mprec@1px": 0.758,
+                           "mnum_keypoints": 1024.0, "mnum_matches": 735.175},
+             "maa_seeds": [97.085, 97.044, 96.896],
+             "exit_histogram": [0, 0, 0, 0, 37, 3], "mean_pruned_share": 0.0151},
 }
 EXIT_SHARE = 0.05  # half the sum of |exit-layer count differences|, of the pairs
 SYNC_PAIRS = 5  # pairs whose matcher runs under PyTorch's sync debug mode
@@ -1735,9 +1804,10 @@ def count_syncs(model, dataset, device, n_pairs: int) -> float:
 
 
 def check_adaptive(device, root: Path, fixed: dict) -> tuple[dict, dict]:
-    """``HPatchesPipeline`` with ``recipes.hpatches_adaptive_conf`` on phase 8's
-    famA and famB sets through the kernels: summaries within
-    HPATCHES_TOLERANCES of the JAX package's adaptive numbers, the histogram of
+    """``HPatchesPipeline`` with ``recipes.hpatches_adaptive_conf`` on the first
+    ADAPTIVE_SEQS sequences of phase 8's famA and famB sets through the
+    kernels: summaries within HPATCHES_TOLERANCES of the JAX package's adaptive
+    numbers (the mAA of the band over its RANSAC seeds 0-2), the histogram of
     exit layers within EXIT_SHARE of the pairs of JAX's, and K1 and K2 each
     launched sum over pairs of 2 (exit layer + 1) times. ``fixed`` is phase
     8's report, printed beside. Returns (the attention launches, what is
@@ -1757,7 +1827,8 @@ def check_adaptive(device, root: Path, fixed: dict) -> tuple[dict, dict]:
     launches = {"attention_rotary": 0, "attention": 0}
     report, failures = {}, []
     for name, ref in ADAPTIVE_JAX.items():
-        pipeline = HPatchesPipeline(merge(conf, {"data": {"data_dir": str(root / name)}}),
+        pipeline = HPatchesPipeline(merge(conf, {"data": {"data_dir": str(root / name),
+                                                          "max_seqs": ADAPTIVE_SEQS}}),
                                     device=device)
         n_pairs = len(pipeline.dataset)
         A.reset_launches()
@@ -1789,10 +1860,14 @@ def check_adaptive(device, root: Path, fixed: dict) -> tuple[dict, dict]:
             failures.append(f"{name} exit layers {hist} against JAX's {ref['exit_histogram']}")
         for key, value in ref["summaries"].items():
             tol = HPATCHES_TOLERANCES[key] * (abs(value) if key in RELATIVE else 1.0)
-            diff = float(summaries[key]) - value
+            # the mAA beyond the band of JAX's RANSAC seeds 0-2, the rest beyond seed 0's
+            band = ref["maa_seeds"] if key == "H_error_ransac_mAA" else [value]
+            port = float(summaries[key])
+            diff = port - min(band) if port < min(band) else max(port - max(band), 0.0)
             verdict = "ok" if abs(diff) <= tol else "FAILS"
-            log(f"  {name} {key}: port {float(summaries[key]):.3f}, JAX {value:.3f}, difference "
-                f"{diff:+.3f} (tolerance {tol:.3f}) {verdict}; fixed depth on the card "
+            log(f"  {name} {key}: port {port:.3f}, JAX {value:.3f} ({min(band):.3f} to "
+                f"{max(band):.3f} over its seeds 0-2), beyond it by {diff:+.3f} (tolerance "
+                f"{tol:.3f}) {verdict}; fixed depth on the card, all of the set "
                 f"{float(fixed[name]['summaries'][key]):.3f}")
             if verdict != "ok":
                 failures.append(f"{name} {key}: {float(summaries[key])} against {value}")
@@ -2082,17 +2157,17 @@ SIFT_GATES = ("sift_superglue", "sift_lightglue", "superpoint_nn")  # phase 15(b
 # (c), (d): the JAX package's summaries on phase 8's sets (RANSAC seed 0, on the CPU):
 # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_superglue.py --conf <folder of
 # outputs/results/hpatches> --sets famA=... famB=... [--max_seqs 8]
-SIFT_SG_JAX = {  # --conf sift_sg_stage1 (famB: --max_seqs 8)
-    "famA": {"H_error_ransac_mAA": 79.124, "mprec@1px": 0.567, "mnum_keypoints": 327.1,
-             "mnum_matches": 207.01},
+SIFT_SG_JAX = {  # --conf sift_sg_stage1 --max_seqs 8
+    "famA": {"H_error_ransac_mAA": 79.894, "mprec@1px": 0.565, "mnum_keypoints": 355.125,
+             "mnum_matches": 229.6},
     "famB": {"H_error_ransac_mAA": 94.064, "mprec@1px": 0.639, "mnum_keypoints": 358.0,
              "mnum_matches": 217.625},
 }
-# (c) famB at its first 8 sequences (40 of its 150 pairs, all of them illumination
-# changes), for the script's time; its mAA is held within 1.5 of JAX's RANSAC seeds 0-2
-# on them (--seed N --reuse)
-SIFT_SG_SEQS = {"famB": 8}
-SIFT_SG_MAA_SEEDS = {"famB": [94.064, 93.814, 94.056]}
+# (c) famA and famB at their first 8 sequences (40 of their 100 and 150 pairs; famB's
+# are all illumination changes), for the script's time; the mAA is held within 1.5 of
+# JAX's RANSAC seeds 0-2 on them (--seed N --reuse)
+SIFT_SG_SEQS = {"famA": 8, "famB": 8}
+SIFT_SG_MAA_SEEDS = {"famA": [79.894, 81.189, 80.532], "famB": [94.064, 93.814, 94.056]}
 NN_SEQS = 8  # (d): famA's first 8 sequences, 40 pairs
 # recipe -> (its folder of outputs/results/hpatches, JAX's summaries with RANSAC seed 0,
 # JAX's mAA with seeds 0-4: --seed N --reuse)
@@ -2304,8 +2379,8 @@ def hold(name: str, summaries: dict, ref: dict, failures: list, maa_seeds=None) 
 
 def check_sift_hpatches(device, root: Path) -> tuple[dict, dict]:
     """(c) ``HPatchesPipeline`` with ``recipes.hpatches_sift_superglue_conf``
-    (2048 slots, 9 layers, Sinkhorn 50, the RANSAC sweep) on phase 8's famA and
-    famB, and (d) SIFT+NN and SP0b+NN on famA's first NN_SEQS sequences, each
+    (2048 slots, 9 layers, Sinkhorn 50, the RANSAC sweep) on the first
+    SIFT_SG_SEQS sequences of phase 8's famA and famB, and (d) SIFT+NN and SP0b+NN on famA's first NN_SEQS sequences, each
     held to the JAX package's summaries; SIFT_SG_LAUNCHES K2 launches a pair
     and no K1. Returns (the launches of (c), what is printed)."""
     import numpy as np
@@ -3302,10 +3377,11 @@ def check_eth3d(device, root: Path, hpatches_root: Path) -> tuple[dict, dict]:
     """Phase 17: (a) the ETH3D benchmark, (b) the refiner's static mode, (c)
     AdaLAM on phase 8's famA, (d) the feature cache, (e) depth ground truth,
     (f) timing_measurement. Returns ({path: attention launches}, report)."""
-    report = {"render_s": render_eth3d_set(root / "set")}
+    render_s, spent, where = rendered(render_eth3d_set, root / "set")
+    report = {"render_s": spent}
     log(f"  rendered {ETH3D_SET['num_scenes']} scenes of {ETH3D_SET['views']} views "
-        f"(640x480, {ETH3D_SET['points']} points) in {report['render_s']:.1f} s "
-        f"({RENDER_WORKERS} processes)")
+        f"(640x480, {ETH3D_SET['points']} points) in {render_s:.1f} s "
+        f"({RENDER_WORKERS} processes, {where})")
     launches = {}
     launches["eth3d"], report["eth3d"] = check_eth3d_benchmark(device, root)
     launches["refiner_modes"], report["refiner"] = check_refiner_modes(device, root)
@@ -3382,15 +3458,23 @@ def main() -> int:
             log(f"  ptxas {name}: {usage}")
     log(f"  built in {time.perf_counter() - t:.1f} s")
 
+    # phase 5's probe runs in its own processes beside phases 3-4
+    probe = start_probe()
+
     log("phase 3: kernels against their plain versions")
     results = check_kernels(device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # phases 8, 10 and 17 read these sets; the host renders them meanwhile
+        start_renders([(render_sets, Path(tmp) / "hpatches"),
+                       (render_pose_set, Path(tmp) / "pose"),
+                       (render_eth3d_set, Path(tmp) / "eth3d" / "set")])
+
         log("phase 4: flagship pipeline on the JAX gate's pairs")
         launches = check_flagship(device, Path(tmp) / "gate")
 
         log("phase 5: kernel probe entry point")
-        k3, verdict = check_probe(device)
+        k3, verdict = check_probe(device, probe)
         results.append(k3)
 
         log("phase 6: gradients through the kernels")
@@ -3403,7 +3487,7 @@ def main() -> int:
         t = time.perf_counter()
         bench_launches, report = check_hpatches(device, Path(tmp) / "hpatches")
         seconds = time.perf_counter() - t
-        log(f"  phase 8 took {seconds:.1f} s: rendering {report['render_s']:.1f} s, "
+        log(f"  phase 8 took {seconds:.1f} s: waiting for the render {report['render_s']:.1f} s, "
             f"evaluation {seconds - report['render_s']:.1f} s")
 
         log("phase 9: the stage-5 recipe in bf16")
@@ -3484,6 +3568,15 @@ def main() -> int:
         check_jpldd(device, Path(tmp), Path(tmp) / "gate")
         log(f"  phase 21 took {time.perf_counter() - t:.1f} s")
 
+        from chip_smoke_loftr import check_loftr
+
+        log("phase 22: LoFTR at full width (ResNet-FPN, the linear-attention coarse "
+            "transformer, the dual-softmax, the fine windows; HPatches with and without the "
+            "refiner; its three training recipes)")
+        t = time.perf_counter()
+        loftr_launches = check_loftr(device, Path(tmp), Path(tmp) / "gate")
+        log(f"  phase 22 took {time.perf_counter() - t:.1f} s")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
@@ -3497,7 +3590,8 @@ def main() -> int:
                              **{path: counts["attention_rotary"]
                                 for path, counts in sift_train_launches.items()},
                              **{path: counts["attention_rotary"]
-                                for path, counts in eth3d_launches.items()}},
+                                for path, counts in eth3d_launches.items()},
+                             "loftr": loftr_launches["attention_rotary"]},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
@@ -3513,7 +3607,8 @@ def main() -> int:
                          for path, counts in sift_train_launches.items()},
                       **{path: counts["attention"]
                          for path, counts in eth3d_launches.items()},
-                      **gs_launches, **gs_train_launches, **lines_launches},
+                      **gs_launches, **gs_train_launches, **lines_launches,
+                      "loftr": loftr_launches["attention"]},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

@@ -123,16 +123,16 @@ class EvalPipeline:
             keys=self.export_keys,
             optional_keys=("keypoint_valid0", "keypoint_valid1", *self.optional_export_keys))
 
-    def sweep(self, data: dict, pred: dict, estimate) -> dict:
-        """{threshold: ``estimate(data, pred, conf, device=...)``} at each
-        RANSAC threshold (``SWEEP`` when ``eval.ransac_th`` is -1, else that
-        one); the whole sweep's time goes to ``ransac_sweep_ms``."""
+    def sweep(self, data: dict, pred: dict, estimate_sweep) -> dict:
+        """{threshold: result} of ``estimate_sweep(data, pred, conf,
+        thresholds, device=...)`` over the RANSAC thresholds (``SWEEP`` when
+        ``eval.ransac_th`` is -1, else that one); the whole sweep's time goes
+        to ``ransac_sweep_ms``."""
         conf = self.conf["eval"]
         thresholds = SWEEP if conf["ransac_th"] == -1.0 else [conf["ransac_th"]]
         synchronize(self.device)
         t = time.perf_counter()
-        out = {th: estimate(data, pred, merge(conf, {"ransac_th": th}), device=self.device)
-               for th in thresholds}
+        out = estimate_sweep(data, pred, conf, thresholds, device=self.device)
         synchronize(self.device)
         self.timings["ransac_sweep_ms"].append((time.perf_counter() - t) * 1e3)
         return out

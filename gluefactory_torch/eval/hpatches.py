@@ -10,7 +10,9 @@ mAA and precision of each.
         [--device cuda|cpu] [--overwrite] [--overwrite_eval] [dot.key=value ...]
 
 Without ``--conf`` it runs the flagship at 1024 keypoints
-(``recipes.hpatches_flagship_conf``); results go to
+(``recipes.hpatches_flagship_conf``); ``--conf`` also takes the name of a
+committed LoFTR run (``recipes.LOFTR_CONFS``: the bare matcher, or a pipeline
+with no extractor and the refiner). Results go to
 ``outputs/results/hpatches/<tag>``."""
 
 from __future__ import annotations
@@ -22,14 +24,14 @@ from pathlib import Path
 import numpy as np
 
 from ..models.cache_loader import CacheLoader
-from ..recipes import hpatches_flagship_conf
+from ..recipes import LOFTR_CONFS, hpatches_flagship_conf, hpatches_loftr_conf
 from ..settings import EVAL_PATH
 from ..utils.tools import AUCMetric
 from .eval_pipeline import EvalPipeline, unbatch
 from .io import get_eval_parser, parse_eval_args
 from .utils import (
     eval_homography_dlt,
-    eval_homography_robust,
+    eval_homography_robust_sweep,
     eval_matches_homography,
     eval_poses,
 )
@@ -60,7 +62,7 @@ class HPatchesPipeline(EvalPipeline):
             data, pred = unbatch(batch), cache_loader(batch)
             results_i = eval_matches_homography(data, pred, device=self.device)
             results_i.update(eval_homography_dlt(data, pred, device=self.device))
-            for th, r in self.sweep(data, pred, eval_homography_robust).items():
+            for th, r in self.sweep(data, pred, eval_homography_robust_sweep).items():
                 pose_results[th].append(r)
             results["names"].append(name)
             for k, v in results_i.items():
@@ -93,12 +95,15 @@ class HPatchesPipeline(EvalPipeline):
 
 def main(argv: list[str] | None = None):
     args = get_eval_parser().parse_intermixed_args(argv)
-    conf = parse_eval_args("hpatches", args, HPatchesPipeline.default_conf,
-                           hpatches_flagship_conf())
+    named = hpatches_flagship_conf()
+    if args.conf in LOFTR_CONFS:
+        named, args.conf = hpatches_loftr_conf(args.conf), None
+    conf = parse_eval_args("hpatches", args, HPatchesPipeline.default_conf, named)
     pipeline = HPatchesPipeline(conf, device=args.device)
     summaries, _ = pipeline.run(EVAL_PATH / "hpatches" / args.tag, overwrite=args.overwrite,
                                 overwrite_eval=args.overwrite_eval)
     pprint.pprint(summaries)
+    return summaries
 
 
 if __name__ == "__main__":

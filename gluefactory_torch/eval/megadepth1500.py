@@ -28,7 +28,7 @@ from ..recipes import pose_flagship_conf
 from ..settings import EVAL_PATH
 from .eval_pipeline import EvalPipeline, unbatch
 from .io import get_eval_parser, parse_eval_args
-from .utils import eval_matches_epipolar, eval_poses, eval_relative_pose_robust
+from .utils import eval_matches_epipolar, eval_poses, eval_relative_pose_robust_sweep
 
 class MegaDepth1500Pipeline(EvalPipeline):
     default_conf = {
@@ -57,7 +57,7 @@ class MegaDepth1500Pipeline(EvalPipeline):
         for batch in loader:
             data, pred = unbatch(batch), cache_loader(batch)
             results_i = eval_matches_epipolar(data, pred, device=self.device)
-            for th, r in self.sweep(data, pred, eval_relative_pose_robust).items():
+            for th, r in self.sweep(data, pred, eval_relative_pose_robust_sweep).items():
                 pose_results[th].append(r)
             results["names"].append(batch["name"][0])
             for k, v in results_i.items():

@@ -82,10 +82,11 @@ def eval_homography_dlt(data: dict, pred: dict, irls: int = 3, device="cuda") ->
     return {"H_error_dlt": err if np.isfinite(err) else np.nan}
 
 
-def eval_homography_robust(data: dict, pred: dict, conf: dict, device="cuda",
-                           sample_idx: np.ndarray | None = None) -> dict:
-    """Corner error and inliers of the robust estimator named by
-    ``conf['estimator']`` (``ransac``, ``hybrid_ransac``). Where the
+def eval_homography_robust_sweep(data: dict, pred: dict, conf: dict, thresholds,
+                                 device="cuda", sample_idx: np.ndarray | None = None) -> dict:
+    """{th: corner error and inliers} of the robust estimator named by
+    ``conf['estimator']`` (``ransac``, ``hybrid_ransac``) at each RANSAC
+    threshold of ``thresholds``, all in one call of its ``sweep``. Where the
     prediction holds ``lines0`` and ``line_matches0``, the matched segments
     go to the estimator as ``m_lines0``/``m_lines1`` (``orig_lines*`` where
     present), invalid lines and unmatched ones masked by ``valid_lines``.
@@ -109,14 +110,25 @@ def eval_homography_robust(data: dict, pred: dict, conf: dict, device="cuda",
     if sample_idx is not None:
         est_data["sample_idx"] = torch.tensor(np.asarray(sample_idx), dtype=torch.long,
                                               device=device)
-    est = estimator(est_data)
-    if not est["success"]:
-        return {"H_error_ransac": np.nan, "ransac_inl": 0, "ransac_inl%": 0.0}
-    err = homography_corner_error(est["M_0to1"][None], _tensor(data["H_0to1"], device)[None],
-                                  _image_size(data, device)[None])
-    n_inliers = int(est["inliers"].sum())
-    return {"H_error_ransac": float(err[0]), "ransac_inl": n_inliers,
-            "ransac_inl%": float(n_inliers / max(valid.sum(), 1))}
+    ests = estimator.sweep(est_data, thresholds)
+    H = torch.stack([est["M_0to1"] for est in ests])
+    errs = homography_corner_error(H, _tensor(data["H_0to1"], device)[None],
+                                   _image_size(data, device)[None])
+    errs, n_inliers = torch.stack([errs, torch.stack(
+        [est["inliers"].sum() for est in ests]).to(errs.dtype)]).tolist()
+    out = {}
+    for th, est, err, n_inl in zip(thresholds, ests, errs, n_inliers):
+        out[th] = ({"H_error_ransac": err, "ransac_inl": int(n_inl),
+                    "ransac_inl%": float(int(n_inl) / max(valid.sum(), 1))} if est["success"]
+                   else {"H_error_ransac": np.nan, "ransac_inl": 0, "ransac_inl%": 0.0})
+    return out
+
+
+def eval_homography_robust(data: dict, pred: dict, conf: dict, device="cuda",
+                           sample_idx: np.ndarray | None = None) -> dict:
+    """``eval_homography_robust_sweep`` at ``conf['ransac_th']`` alone."""
+    th = conf["ransac_th"]
+    return eval_homography_robust_sweep(data, pred, conf, [th], device, sample_idx)[th]
 
 
 def eval_matches_epipolar(data: dict, pred: dict, device="cuda") -> dict:
@@ -135,10 +147,11 @@ def eval_matches_epipolar(data: dict, pred: dict, device="cuda") -> dict:
     return results
 
 
-def eval_relative_pose_robust(data: dict, pred: dict, conf: dict, device="cuda") -> dict:
-    """The larger of the rotation and translation errors (degrees) of the
+def eval_relative_pose_robust_sweep(data: dict, pred: dict, conf: dict, thresholds,
+                                    device="cuda") -> dict:
+    """{th: the larger of the rotation and translation errors (degrees) of the
     robust relative pose named by ``conf['estimator']`` (RANSAC), and its
-    inliers."""
+    inliers} at each RANSAC threshold of ``thresholds``."""
     device = resolve_device(device)
     pts0, pts1, _, valid = get_matches_scores(pred["keypoints0"], pred["keypoints1"],
                                               pred["matches0"], pred["matching_scores0"])
@@ -146,14 +159,24 @@ def eval_relative_pose_robust(data: dict, pred: dict, conf: dict, device="cuda")
     est_data = {"m_kpts0": _tensor(pts0, device), "m_kpts1": _tensor(pts1, device),
                 "camera0": data["camera0"], "camera1": data["camera1"],
                 "valid": torch.as_tensor(valid, device=device)}
-    est = estimator(est_data)
-    if not est["success"]:
-        return {"rel_pose_error": np.nan, "ransac_inl": 0, "ransac_inl%": 0.0}
-    M = est["M_0to1"]
-    r_err, t_err = relative_pose_error(data["T_0to1"].to(device), M.R, M.t)
-    n_inliers = int(est["inliers"].sum())
-    return {"rel_pose_error": float(torch.maximum(r_err, t_err)), "ransac_inl": n_inliers,
-            "ransac_inl%": float(n_inliers / max(valid.sum(), 1))}
+    out = {}
+    for th, est in zip(thresholds, estimator.sweep(est_data, thresholds)):
+        if not est["success"]:
+            out[th] = {"rel_pose_error": np.nan, "ransac_inl": 0, "ransac_inl%": 0.0}
+            continue
+        M = est["M_0to1"]
+        r_err, t_err = relative_pose_error(data["T_0to1"].to(device), M.R, M.t)
+        n_inliers = int(est["inliers"].sum())
+        out[th] = {"rel_pose_error": float(torch.maximum(r_err, t_err)),
+                   "ransac_inl": n_inliers,
+                   "ransac_inl%": float(n_inliers / max(valid.sum(), 1))}
+    return out
+
+
+def eval_relative_pose_robust(data: dict, pred: dict, conf: dict, device="cuda") -> dict:
+    """``eval_relative_pose_robust_sweep`` at ``conf['ransac_th']`` alone."""
+    th = conf["ransac_th"]
+    return eval_relative_pose_robust_sweep(data, pred, conf, [th], device)[th]
 
 
 def eval_poses(pose_results: dict, auc_ths: list, key: str, unit: str = "°") -> dict:

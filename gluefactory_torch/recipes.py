@@ -1192,3 +1192,96 @@ def line_conf(benchmark: str, name: str) -> dict | None:
     or None where it has none of that name."""
     conf = LINE_CONFS.get(benchmark, {}).get(name)
     return None if conf is None else copy.deepcopy(conf)
+
+
+# --- LoFTR -------------------------------------------------------------------------
+
+# LoFTR's two blobs: stage 0 (trained with the saturated fine window) and 0b
+LOFTR_WEIGHTS = {name: f"weights/loftr_tpu_{name}.f16.msgpack" for name in ("stage0", "stage0b")}
+_LOFTR = {"name": "matchers.loftr", "coarse_layers": 4, "max_matches": 1024,
+          "match_threshold": 0.2}
+
+
+def _loftr_hpatches(blob: str, refine: bool = False, famb: bool = False) -> dict:
+    """LoFTR from ``LOFTR_WEIGHTS[blob]`` on the HPatches benchmark: the bare
+    matcher as the model, or (``refine``) a pipeline with no extractor, LoFTR
+    and the ZNCC refiner, whose committed conf repeats LoFTR's keys at its top
+    level (the pipeline ignores them, as JAX's does)."""
+    data = {**_HPATCHES_DATA, "data_dir": "hpatches-b"} if famb else _HPATCHES_DATA
+    model = ({"name": "two_view_pipeline", **{k: v for k, v in _LOFTR.items() if k != "name"},
+              "matcher": _LOFTR, "extractor": {"name": None},
+              "filter": {"name": "matchers.match_refiner"}} if refine else _LOFTR)
+    return copy.deepcopy({"data": data, "model": model, "eval": _HPATCHES_EVAL,
+                          "checkpoint": LOFTR_WEIGHTS[blob]})
+
+
+# each committed outputs/results/hpatches/<name>/conf.yaml; ``loftr_stage0`` names its
+# run ``loftr_tpu_stage0``, which is not committed: here its export, the blob
+LOFTR_CONFS = {
+    "loftr_stage0b": _loftr_hpatches("stage0b"),
+    "loftr_stage0b_famb": _loftr_hpatches("stage0b", famb=True),
+    "loftr_stage0b_refine": _loftr_hpatches("stage0b", refine=True),
+    "loftr_stage0": _loftr_hpatches("stage0"),
+}
+
+
+def hpatches_loftr_conf(name: str = "loftr_stage0b") -> dict:
+    """The committed LoFTR HPatches conf ``name`` of ``LOFTR_CONFS``."""
+    return copy.deepcopy(LOFTR_CONFS[name])
+
+
+def loftr_conf() -> dict:
+    """``loftr.yaml``: LoFTR's model card (4 coarse layers, 1024 slots)."""
+    return {"model": dict(_LOFTR)}
+
+
+_LOFTR_TRAIN = {"log_every_iter": 50, "eval_every_iter": 500, "keep_last_checkpoints": 3,
+                "clip_grad": 5.0, "best_key": "loss/total"}
+_LOFTR_ENGINE = {"name": "homographies_ondevice", "pool_size": 512, "val_pool_size": 48,
+                 "source_size": [448, 448], "image_size": 320, "max_gt_points": 32,
+                 "train_batch_size": 8, "val_batch_size": 8, "steps_per_epoch": 500,
+                 "val_steps": 4,
+                 "homography": {"difficulty": 0.6, "translation": 0.3, "max_angle": 30.0},
+                 "photometric": {"p": 0.95, "strength": 1.0}}
+
+
+def loftr_ondevice_conf() -> dict:
+    """``loftr_ondevice.yaml``: LoFTR (512 slots) from its initialisation on
+    the on-device homography engine (512 + 48 images at 448x448, 320-pixel
+    views, batch 8) with the focal coarse loss and the fine L2; the recipe of
+    ``loftr_tpu_stage0``."""
+    return copy.deepcopy({
+        "data": _LOFTR_ENGINE,
+        "model": {**_LOFTR, "max_matches": 512},
+        "train": {"seed": 0, "epochs": 12, "optimizer": "adam", "lr": 3.0e-4,
+                  "lr_schedule": {"type": "exp", "start": 3000, "exp_div_10": 12000},
+                  **_LOFTR_TRAIN, "save_every_iter": 1000}})
+
+
+def loftr_finetune_fine_conf() -> dict:
+    """``loftr_finetune_fine.yaml``: stage 0 fine-tuned with the normalised
+    fine correlation at a lower rate and twice the fine weight. Its
+    ``load_experiment``, the run ``loftr_tpu_stage0``, is not committed: the
+    recipe starts from that run's export, ``LOFTR_WEIGHTS['stage0']``."""
+    conf = loftr_ondevice_conf()
+    conf["model"]["loss"] = {"fine_weight": 2.0}
+    conf["train"].update(seed=1, epochs=8, lr=1.0e-4,
+                         lr_schedule={"type": "exp", "start": 1500, "exp_div_10": 8000},
+                         load_experiment=LOFTR_WEIGHTS["stage0"])
+    return conf
+
+
+def loftr_homography_conf() -> dict:
+    """``loftr_homography.yaml``: LoFTR (512 slots) from its initialisation on
+    the host homography dataset (synthetic scenes, 320-pixel views, the lg
+    photometrics, 8 loader processes, batch 8)."""
+    return copy.deepcopy({
+        "data": {"name": "homographies", "synthetic": True, "image_size": 320,
+                 "train_size": 4000, "val_size": 64, "train_batch_size": 8,
+                 "val_batch_size": 8, "num_workers": 8,
+                 "homography": {"difficulty": 0.6, "max_angle": 30.0},
+                 "photometric": {"name": "lg"}},
+        "model": {**_LOFTR, "max_matches": 512},
+        "train": {"seed": 0, "epochs": 8, "lr": 3.0e-4,
+                  "lr_schedule": {"type": "exp", "start": 4000, "exp_div_10": 16000},
+                  **_LOFTR_TRAIN, "save_every_iter": 2000}})

@@ -19,7 +19,7 @@ import torch
 from ...geometry.homography import _inv, _normalize_pts, sym_homography_error
 from ...geometry.utils import to_homogeneous
 from ..base_estimator import BaseEstimator
-from .ransac import sample_minimal_sets
+from .ransac import lo_schedule, sample_minimal_sets
 
 
 def line_coeffs(segs: torch.Tensor) -> torch.Tensor:
@@ -81,13 +81,19 @@ def _finite(x: torch.Tensor) -> torch.Tensor:
 def hybrid_ransac_homography(
     kpts0: torch.Tensor, kpts1: torch.Tensor, valid_pts: torch.Tensor,
     segs0: torch.Tensor, segs1: torch.Tensor, valid_lines: torch.Tensor,
-    th: float, line_th: float, num_hypotheses: int = 1024, lo_iters: int = 4,
+    ths, line_th: float, num_hypotheses: int = 1024, lo_iters: int = 4,
     generator: torch.Generator | None = None, sample_idx: torch.Tensor | None = None,
 ):
     """Points (N, 2) x2 with valid (N,), segments (M, 2, 2) x2 with valid
-    (M,) -> (H (3, 3), point inliers (N,), line inliers (M,)).
+    (M,), ``ths`` a sequence of T point thresholds -> (H (T, 3, 3), point
+    inliers (T, N), line inliers (T, M)). The thresholds share the minimal
+    sets and their hypotheses (a run per threshold from one seed draws the
+    same); each one's choice and LO steps are its own, taken in one batch.
     ``sample_idx`` (S, 4), indices into points then lines, replaces the
     random minimal sets."""
+    f32 = np.float32
+    t = len(ths)
+    th = torch.tensor([float(x) for x in ths], dtype=torch.float32, device=kpts0.device)
     l1 = line_coeffs(segs1)
     n, m = kpts0.shape[0], segs0.shape[0]
     if sample_idx is None:
@@ -103,38 +109,41 @@ def hybrid_ransac_homography(
         ~valid_pts[None], float("inf")))
     l_err = _finite(point_on_line_residual(segs0[None], l1[None], H).masked_fill(
         ~valid_lines[None], float("inf")))
-    score = ((1.0 - (p_err / th) ** 2).clamp_min(0.0).sum(-1)
-             + (1.0 - (l_err / line_th) ** 2).clamp_min(0.0).sum(-1))
-    H_cur = H[score.argmax()]
+    score = ((1.0 - (p_err / th[:, None, None]) ** 2).clamp_min(0.0).sum(-1)
+             + (1.0 - (l_err / line_th) ** 2).clamp_min(0.0).sum(-1))  # (T, S)
+    H_cur = H[score.argmax(dim=-1)]  # (T, 3, 3)
 
     def errors(Hm):
-        pe = _finite(sym_homography_error(kpts0[None], kpts1[None], Hm[None])[0])
-        le = _finite(point_on_line_residual(segs0[None], l1[None], Hm[None])[0])
+        pe = _finite(sym_homography_error(kpts0[None], kpts1[None], Hm))
+        le = _finite(point_on_line_residual(segs0[None], l1[None], Hm))
         return pe, le
 
     def msac(pe, le):
-        point = torch.where(valid_pts, (1.0 - (pe / th) ** 2).clamp_min(0.0), 0.0)
+        point = torch.where(valid_pts, (1.0 - (pe / th[:, None]) ** 2).clamp_min(0.0), 0.0)
         line = torch.where(valid_lines, (1.0 - (le / line_th) ** 2).clamp_min(0.0), 0.0)
-        return point.sum() + line.sum()
+        return point.sum(-1) + line.sum(-1)
 
     # each step's errors and score are kept with the model they belong to
     pe, le = errors(H_cur)
     score_cur = msac(pe, le)
-    f32 = np.float32
-    for th_i in np.geomspace(4.0 * th, th, max(lo_iters, 1)).astype(f32):
-        wp = (valid_pts & (pe < float(th_i))).to(kpts0.dtype)
-        line_th_i = float(f32(f32(th_i * f32(line_th)) / f32(th)))  # in float32, as JAX
-        wl = (valid_lines & (le < line_th_i)).to(kpts0.dtype)
-        H_new = joint_dlt(kpts0[None], kpts1[None], wp[None], segs0[None], segs1[None],
-                          l1[None], wl[None])[0]
+    schedule = lo_schedule(ths, lo_iters)
+    # the line thresholds in float32, as JAX computes them
+    line_schedule = (schedule * f32(line_th)).astype(f32) / np.asarray(ths, f32)
+    pts0, pts1 = kpts0.expand(t, n, 2), kpts1.expand(t, n, 2)
+    ends0, ends1, lines1 = segs0.expand(t, m, 2, 2), segs1.expand(t, m, 2, 2), l1.expand(t, m, 3)
+    for th_i, line_th_i in zip(torch.from_numpy(schedule).to(kpts0.device),
+                               torch.from_numpy(line_schedule).to(kpts0.device)):
+        wp = (valid_pts & (pe < th_i[:, None])).to(kpts0.dtype)
+        wl = (valid_lines & (le < line_th_i[:, None])).to(kpts0.dtype)
+        H_new = joint_dlt(pts0, pts1, wp, ends0, ends1, lines1, wl)
         pe_new, le_new = errors(H_new)
         score_new = msac(pe_new, le_new)
-        ok = (torch.isfinite(H_new).all() & (wp.sum() + 2 * wl.sum() > 8.0)
+        ok = (torch.isfinite(H_new).flatten(-2).all(-1) & (wp.sum(-1) + 2 * wl.sum(-1) > 8.0)
               & (score_new >= score_cur))
-        H_cur = torch.where(ok, H_new, H_cur)
-        pe, le = torch.where(ok, pe_new, pe), torch.where(ok, le_new, le)
+        H_cur = torch.where(ok[:, None, None], H_new, H_cur)
+        pe, le = torch.where(ok[:, None], pe_new, pe), torch.where(ok[:, None], le_new, le)
         score_cur = torch.where(ok, score_new, score_cur)
-    return H_cur, valid_pts & (pe < th), valid_lines & (le < line_th)
+    return H_cur, valid_pts & (pe < th[:, None]), valid_lines & (le < line_th)
 
 
 class HybridHomographyEstimator(BaseEstimator):
@@ -147,7 +156,7 @@ class HybridHomographyEstimator(BaseEstimator):
     default_conf = {"ransac_th": 3.0, "line_th": 3.0, "num_hypotheses": 1024, "lo_iters": 4,
                     "seed": 0}
 
-    def _forward(self, data: dict) -> dict:
+    def sweep(self, data: dict, thresholds) -> list[dict]:
         kpts0, kpts1 = data["m_kpts0"].float(), data["m_kpts1"].float()
         device = kpts0.device
         valid = data.get("valid")
@@ -164,14 +173,16 @@ class HybridHomographyEstimator(BaseEstimator):
                       if vlines is None else vlines.bool())
         generator = torch.Generator(device=device).manual_seed(int(self.conf["seed"]))
         H, inl_p, inl_l = hybrid_ransac_homography(
-            kpts0, kpts1, valid, segs0, segs1, vlines, th=float(self.conf["ransac_th"]),
+            kpts0, kpts1, valid, segs0, segs1, vlines, thresholds,
             line_th=float(self.conf["line_th"]),
             num_hypotheses=int(self.conf["num_hypotheses"]),
             lo_iters=int(self.conf["lo_iters"]), generator=generator,
             sample_idx=data.get("sample_idx"))
-        n_inliers = int(inl_p.sum()) + int(inl_l.sum())
-        return {"success": n_inliers >= 4 and bool(torch.isfinite(H).all()),
-                "M_0to1": H, "inliers": inl_p, "line_inliers": inl_l}
+        n_inliers = (inl_p.sum(-1) + inl_l.sum(-1)).tolist()
+        finite = torch.isfinite(H).flatten(-2).all(-1).tolist()
+        return [{"success": n_i >= 4 and ok, "M_0to1": H[i], "inliers": inl_p[i],
+                 "line_inliers": inl_l[i]}
+                for i, (n_i, ok) in enumerate(zip(n_inliers, finite))]
 
 
 __main_estimator__ = HybridHomographyEstimator

@@ -30,7 +30,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ..core.config import merge
 from ..eval.eval_pipeline import SWEEP, synchronize, unbatch
 from ..eval.megadepth1500 import MegaDepth1500Pipeline
-from ..eval.utils import eval_relative_pose_robust
+from ..eval.utils import eval_relative_pose_robust, eval_relative_pose_robust_sweep
 from ..models.cache_loader import CacheLoader
 from ..recipes import pose_flagship_conf
 from ..scripts.generate_pose_eval_set import render_scene_job, write_pairs
@@ -64,7 +64,7 @@ def main(argv: list[str] | None = None) -> None:
         data, pred = unbatch(batch), CacheLoader({"path": str(pred_file)})(batch)
 
     def sweep():
-        pipeline.sweep(data, pred, eval_relative_pose_robust)
+        pipeline.sweep(data, pred, eval_relative_pose_robust_sweep)
 
     sweep()  # warm-up: library handles, workspaces
     synchronize(device)

@@ -232,8 +232,9 @@ _RENAMES = [
 ]
 
 
-# a LayerNorm: LightGlue's 'ffn_norm', SuperGlue's MLP 'norm_0', 'norm_1', ...
-_NORM = re.compile(r"norm(_\d+)?$")
+# a LayerNorm: LightGlue's 'ffn_norm', SuperGlue's MLP 'norm_0', 'norm_1', ...,
+# LoFTR's 'norm1', 'norm2'
+_NORM = re.compile(r"norm(_?\d+)?$")
 
 
 def _flax_path(key: str) -> list[str]:

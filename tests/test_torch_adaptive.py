@@ -189,9 +189,11 @@ def pruned_share(pred: dict, n_layers: int) -> np.ndarray:
     return np.asarray(shares, np.float32)
 
 
-def jax_adaptive_reference(name: str, data_dir: str, seed: int = 0) -> dict:
-    """The JAX HPatches pipeline with the adaptive card on one set, caching
-    each pair's exit layer and pruned share beside its prediction."""
+def jax_adaptive_reference(name: str, data_dir: str, seed: int = 0,
+                           max_seqs: int | None = None) -> dict:
+    """The JAX HPatches pipeline with the adaptive card on one set (its first
+    ``max_seqs`` sequences where given), caching each pair's exit layer and
+    pruned share beside its prediction."""
     import h5py
 
     from gluefactory_tpu.core.config import Config
@@ -230,7 +232,7 @@ def jax_adaptive_reference(name: str, data_dir: str, seed: int = 0) -> dict:
     conf = Config(HPatchesPipeline.default_conf).merge(
         Config.load(ROOT_PATH / "outputs/results/hpatches/sp0b_lg2_com_refine/conf.yaml")).merge(
         {"model": {"matcher": {"depth_confidence": 0.95, "width_confidence": 0.99}},
-         "data": {"data_dir": data_dir}, "eval": {"seed": seed}})
+         "data": {"data_dir": data_dir, "max_seqs": max_seqs}, "eval": {"seed": seed}})
     out = EVAL_PATH / "hpatches" / f"adaptive_{name}"
     summaries, _ = AdaptiveHPatches(conf).run(out, overwrite=True)
     groups = []  # one group a pair, named <sequence>/<view>
@@ -253,6 +255,8 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--sets", nargs="+", required=True, help="name=/abs/set_dir")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max_seqs", type=int, default=None)
     args = parser.parse_args()
     for spec in args.sets:
-        print(json.dumps(jax_adaptive_reference(*spec.split("=", 1), seed=args.seed)), flush=True)
+        print(json.dumps(jax_adaptive_reference(*spec.split("=", 1), seed=args.seed,
+                                                max_seqs=args.max_seqs)), flush=True)

@@ -22,6 +22,7 @@ import chip_smoke
 import chip_smoke_gluestick
 import chip_smoke_lines
 import chip_smoke_jpldd
+import chip_smoke_loftr
 import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):
@@ -226,6 +227,23 @@ with tempfile.TemporaryDirectory() as tmp:
     settings.DATA_PATH = Path(tmp)
     _, history = training(gconf, Path(tmp) / "gs", steps=1, device="cpu")
 assert history[0]["skipped"] == 0.0 and np.isfinite(history[0]["loss/line_nll_0"]), history
+# the sixteenth slice: LoFTR from its blob by a committed HPatches conf's model
+# (no extractor, the refiner), and a step of its on-device recipe
+from gluefactory_torch.eval.io import load_model
+from gluefactory_torch.recipes import hpatches_loftr_conf, loftr_ondevice_conf
+lconf = hpatches_loftr_conf("loftr_stage0b_refine")
+lmodel = load_model(lconf["model"], lconf["checkpoint"], "cpu")
+limg = torch.rand(1, 48, 64, 3)
+with torch.inference_mode():
+    lpred = lmodel({{"view0": {{"image": limg}}, "view1": {{"image": limg}}}})
+assert lpred["keypoint_valid0"].sum() > 0 and "refined1" in lpred
+lconf = loftr_ondevice_conf()
+lconf["data"].update(pool_size=2, val_pool_size=1, source_size=[96, 96], image_size=64,
+                     train_batch_size=1)
+lconf["model"].update(initial_dim=8, block_dims=[8, 8, 16], fine_dim=8, heads=2)
+with tempfile.TemporaryDirectory() as tmp:
+    _, history = training(lconf, Path(tmp) / "loftr", steps=1, device="cpu")
+assert history[0]["skipped"] == 0.0 and np.isfinite(history[0]["loss/fine_l2"]), history
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -9,6 +9,7 @@ redrawn (its layer's ``reset_parameters``) and each flax layer of the same
 shape initialised under many keys until 2^17 values are pooled, so the
 sampling error of a std is ~0.2% against the 3% tolerance."""
 
+import functools
 import math
 
 import flax.linen as nn
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from gluefactory_torch.models import build_model
+from gluefactory_torch.models.matchers import loftr
 from gluefactory_torch.models.utils.init import TRUNCATED_STD
 
 torch.set_num_threads(2)
@@ -28,6 +30,7 @@ STD_RTOL = 0.03
 MODELS = {
     "extractors.superpoint": {},
     "matchers.lightglue": {"n_layers": 2},  # every layer holds the same kinds of weight
+    "matchers.loftr": {"coarse_layers": 1},  # the backbone, both transformers, fine_proj
 }
 
 
@@ -49,12 +52,17 @@ def _port_draws(layer) -> np.ndarray:
 
 def _flax_draws(layer) -> np.ndarray:
     """Kernels of the flax layer of the same shape, under many keys."""
-    w = layer.weight
+    return _flax_draws_of(tuple(layer.weight.shape), layer.bias is not None)
+
+
+@functools.lru_cache(maxsize=None)
+def _flax_draws_of(shape: tuple, bias: bool) -> np.ndarray:
+    w = torch.empty(shape)
     if w.ndim == 4:
-        flax_layer = nn.Conv(w.shape[0], w.shape[2:], use_bias=layer.bias is not None)
+        flax_layer = nn.Conv(w.shape[0], w.shape[2:], use_bias=bias)
         x = jnp.zeros((1, 8, 8, w.shape[1]))
     else:
-        flax_layer = nn.Dense(w.shape[0], use_bias=layer.bias is not None)
+        flax_layer = nn.Dense(w.shape[0], use_bias=bias)
         x = jnp.zeros((1, w.shape[1]))
     n = max(1, math.ceil(SAMPLES / w.numel()))
     keys = jax.random.split(jax.random.key(0), n)
@@ -90,6 +98,21 @@ def test_norms_and_affines_start_at_ones_and_zeros():
             if ".ffn.1." in pname or "affine" in pname:
                 want = 1.0 if pname.endswith(("weight", "scale")) else 0.0
                 assert np.all(p.detach().numpy() == want), pname
+
+
+def test_loftr_norms_start_at_ones_and_zeros():
+    """Every GroupNorm of LoFTR's backbone and LayerNorm of its transformers
+    starts at scale one and bias zero, as flax's; the FPN's convolutions,
+    the only ones with a bias, start with it at zero."""
+    model = build_model("matchers.loftr", {"coarse_layers": 1}, device="cpu")
+    norms = [(n, m) for n, m in model.named_modules()
+             if isinstance(m, (torch.nn.LayerNorm, loftr.GroupNorm))]
+    assert len(norms) == 15 + 4 * 2
+    for name, norm in norms:
+        scale = norm.weight if isinstance(norm, torch.nn.LayerNorm) else norm.scale
+        assert torch.all(scale == 1.0) and not norm.bias.any(), name
+    biased = [n for n, m in _layers(model) if isinstance(m, torch.nn.Conv2d) and m.bias is not None]
+    assert sorted(biased) == [f"backbone.{p}" for p in ("p1", "p1s", "p2", "p2s", "p3")]
 
 
 def test_trainer_draws_under_its_seed():

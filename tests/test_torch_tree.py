@@ -9,7 +9,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
 RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "chip_smoke_lines.py",
-                 "chip_smoke_jpldd.py", "weights/jpldd_tpu_stage0.f16.msgpack",
+                 "chip_smoke_jpldd.py", "chip_smoke_loftr.py",
+                 "weights/loftr_tpu_stage0.f16.msgpack", "weights/loftr_tpu_stage0b.f16.msgpack",
+                 "weights/jpldd_tpu_stage0.f16.msgpack",
                  "weights/jpldd_tpu_stage1_desc.f16.msgpack",
                  "weights/jpldd_tpu_structured.f16.msgpack",
                  "weights/jpldd_tpu_structured_descB.f16.msgpack",
@@ -78,7 +80,8 @@ def test_runtime_files_are_sent_to_the_gpu_machine():
 def _chip_recipes() -> list[str]:
     """The recipes of gluefactory_torch.recipes that chip_smoke.py runs (its
     GlueStick phases from chip_smoke_gluestick.py, its line benchmarks from
-    chip_smoke_lines.py, JPLDD from chip_smoke_jpldd.py)."""
+    chip_smoke_lines.py, JPLDD from chip_smoke_jpldd.py, LoFTR from
+    chip_smoke_loftr.py)."""
     import re
 
     from gluefactory_torch import recipes
@@ -86,7 +89,8 @@ def _chip_recipes() -> list[str]:
     text = "".join((ROOT / name).read_text() for name in ("chip_smoke.py",
                                                           "chip_smoke_gluestick.py",
                                                           "chip_smoke_lines.py",
-                                                          "chip_smoke_jpldd.py"))
+                                                          "chip_smoke_jpldd.py",
+                                                          "chip_smoke_loftr.py"))
     return sorted({name for name in re.findall(r"\b(\w+_conf)\(\)", text)
                    if callable(getattr(recipes, name, None))})
 
@@ -123,3 +127,14 @@ def test_line_confs_read_blobs_the_gpu_machine_gets(name, tracked):
     path = line_conf(*name.split("/")).get("checkpoint")
     if path:
         assert path in RUNTIME_FILES and path in tracked, f"{name}: {path}"
+
+
+@pytest.mark.parametrize("name", sorted(__import__("gluefactory_torch.recipes",
+                                                   fromlist=["LOFTR_CONFS"]).LOFTR_CONFS))
+def test_loftr_confs_read_blobs_the_gpu_machine_gets(name, tracked):
+    """Each committed LoFTR HPatches conf (phase 22 runs three of them) names a
+    blob that is tracked and sent to the GPU machine."""
+    from gluefactory_torch.recipes import hpatches_loftr_conf
+
+    path = hpatches_loftr_conf(name)["checkpoint"]
+    assert path in RUNTIME_FILES and path in tracked, f"{name}: {path}"

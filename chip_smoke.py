@@ -169,9 +169,15 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      a --restore), loftr_finetune_fine from weights/loftr_tpu_stage0 (3 steps) and
      loftr_homography (2 steps on the host dataset), step times and peak memory; (d)
      no K1 or K2 launch on LoFTR's path.
+ 23. The SfM back-end and the trajectory benchmark at full width (chip_smoke_sfm.py; 4
+     scenes x 8 views at 640x480): (a) one scene's BA, its chain links' RANSAC in
+     float64 and a pose graph, card against CPU; (b) SIFT+LightGlue (two blobs) and
+     GlueStick through run_sfm (1024 hypotheses, 40 BA iterations), the card's medians
+     over its RANSAC seeds 0-2 held to the JAX package's band over seeds 0-9, timed by
+     stage; (c) K1/K2 launches, kernel against plain path; (d) its time.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt. The sets of
-phases 8, 10 and 17 are rendered on the host in the background from phase 4
+phases 8, 10, 17 and 23 are rendered on the host in the background from phase 4
 on; each of those phases waits for its own.
 The last three lines: the kernels as JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -3464,11 +3470,14 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     results = check_kernels(device)
 
+    from chip_smoke_sfm import check_sfm, render_trajectory_set
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        # phases 8, 10 and 17 read these sets; the host renders them meanwhile
+        # phases 8, 10, 17 and 23 read these sets; the host renders them meanwhile
         start_renders([(render_sets, Path(tmp) / "hpatches"),
                        (render_pose_set, Path(tmp) / "pose"),
-                       (render_eth3d_set, Path(tmp) / "eth3d" / "set")])
+                       (render_eth3d_set, Path(tmp) / "eth3d" / "set"),
+                       (render_trajectory_set, Path(tmp) / "trajectory")])
 
         log("phase 4: flagship pipeline on the JAX gate's pairs")
         launches = check_flagship(device, Path(tmp) / "gate")
@@ -3577,6 +3586,10 @@ def main() -> int:
         loftr_launches = check_loftr(device, Path(tmp), Path(tmp) / "gate")
         log(f"  phase 22 took {time.perf_counter() - t:.1f} s")
 
+        log("phase 23: the SfM back-end and the trajectory benchmark at full width "
+            "(SIFT+LightGlue, GlueStick; triangulation, Schur-complement BA, pose graph)")
+        sfm_launches = check_sfm(device, Path(tmp))
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
@@ -3591,7 +3604,9 @@ def main() -> int:
                                 for path, counts in sift_train_launches.items()},
                              **{path: counts["attention_rotary"]
                                 for path, counts in eth3d_launches.items()},
-                             "loftr": loftr_launches["attention_rotary"]},
+                             "loftr": loftr_launches["attention_rotary"],
+                             **{path: counts["attention_rotary"]
+                                for path, counts in sfm_launches.items()}},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
@@ -3608,7 +3623,8 @@ def main() -> int:
                       **{path: counts["attention"]
                          for path, counts in eth3d_launches.items()},
                       **gs_launches, **gs_train_launches, **lines_launches,
-                      "loftr": loftr_launches["attention"]},
+                      "loftr": loftr_launches["attention"],
+                      **{path: counts["attention"] for path, counts in sfm_launches.items()}},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

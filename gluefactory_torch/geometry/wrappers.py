@@ -4,8 +4,9 @@ as dataclasses of plain tensors with leading batch dimensions.
 ``Pose`` maps camera-A coordinates to camera B: x_B = R x_A + t. ``Camera``
 follows COLMAP: the centre of the upper-left pixel is (0.5, 0.5). Only what
 the relative-pose path and the depth ground truth read is ported: the
-constructors, the group operations, scaling, and pixels to rays and back
-through Brown distortion."""
+constructors, the group operations, scaling, pixels to rays and back
+through Brown distortion, and the tangent-space updates and projection
+Jacobians that bundle adjustment and the pose graph (``sfm``) read."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import dataclasses
 
 import torch
 
-from .utils import distort_points, to_homogeneous
+from .utils import J_distort_points, distort_points, so3exp_map, so3log_map, to_homogeneous
 
 
 def _tensor(x, dtype=None, device=None) -> torch.Tensor:
@@ -38,9 +39,17 @@ class Pose:
         T = _tensor(T)
         return cls(R=T[..., :3, :3], t=T[..., :3, 3])
 
+    @classmethod
+    def identity(cls, batch_shape: tuple = (), dtype=torch.float32, device=None) -> "Pose":
+        R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+        return cls(R=R, t=torch.zeros(*batch_shape, 3, dtype=dtype, device=device))
+
     def to(self, device=None, dtype=None) -> "Pose":
         return Pose(R=self.R.to(device=device, dtype=dtype),
                     t=self.t.to(device=device, dtype=dtype))
+
+    def __getitem__(self, idx) -> "Pose":
+        return Pose(R=self.R[idx], t=self.t[idx])
 
     def inv(self) -> "Pose":
         R_inv = self.R.transpose(-1, -2)
@@ -53,6 +62,17 @@ class Pose:
     def transform(self, p3d: torch.Tensor) -> torch.Tensor:
         """Points (..., N, 3) from frame A to frame B."""
         return p3d @ self.R.transpose(-1, -2) + self.t[..., None, :]
+
+    def retract_left(self, delta: torch.Tensor) -> "Pose":
+        """exp(delta) applied after self, delta = (omega, v) (..., 6): the
+        perturbation that bundle adjustment's Jacobians [-[p]x | I] linearize."""
+        dR = so3exp_map(delta[..., :3])
+        return Pose(R=dR @ self.R, t=(dR @ self.t[..., None])[..., 0] + delta[..., 3:])
+
+    def local(self, other: "Pose") -> torch.Tensor:
+        """(omega, t) (..., 6) of self^-1 other."""
+        rel = self.inv().compose(other)
+        return torch.cat([so3log_map(rel.R), rel.t], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +145,25 @@ class Camera:
         valid = z > self.eps
         z_safe = torch.where(valid, z, torch.ones_like(z))
         return p3d[..., :-1] / z_safe[..., None], valid
+
+    def J_project(self, p3d: torch.Tensor) -> torch.Tensor:
+        """(..., N, 2, 3) Jacobian of ``project``, the depth held at ``eps``
+        or more."""
+        x, y, z = p3d.unbind(-1)
+        z = torch.where(z > self.eps, z, torch.full_like(z, self.eps))
+        zero = torch.zeros_like(z)
+        return torch.stack([1.0 / z, zero, -x / z**2, zero, 1.0 / z, -y / z**2],
+                           dim=-1).reshape(*p3d.shape[:-1], 2, 3)
+
+    def J_distort(self, pts: torch.Tensor) -> torch.Tensor:
+        return J_distort_points(pts, self.dist)
+
+    def J_world2image(self, p3d: torch.Tensor) -> torch.Tensor:
+        """(..., N, 2, 3) Jacobian of the pixels with respect to camera-frame
+        points (..., N, 3)."""
+        p2d, _ = self.project(p3d)
+        J_dn = self.f[..., None, :, None] * torch.eye(2, dtype=p3d.dtype, device=p3d.device)
+        return J_dn @ self.J_distort(p2d) @ self.J_project(p3d)
 
     def cam2image(self, p3d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Camera-frame points (..., N, 3) -> (pixels (..., N, 2), whether

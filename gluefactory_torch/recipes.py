@@ -1285,3 +1285,50 @@ def loftr_homography_conf() -> dict:
         "train": {"seed": 0, "epochs": 8, "lr": 3.0e-4,
                   "lr_schedule": {"type": "exp", "start": 4000, "exp_div_10": 16000},
                   **_LOFTR_TRAIN, "save_every_iter": 2000}})
+
+
+# --- the trajectory benchmark (scripts/sfm_trajectory.py) ------------------------------
+
+def trajectory_sift_lg_card(max_kpts: int = 1024) -> dict:
+    """The trajectory benchmark's default model card
+    (gluefactory_tpu/scripts/sfm_trajectory.py ``_default_model_conf``): SIFT
+    at contrast 0.02, then LightGlue on RootSIFT without scale and
+    orientation."""
+    return {"name": "two_view_pipeline",
+            "extractor": {"name": "extractors.sift", "max_num_keypoints": max_kpts,
+                          "contrast_threshold": 0.02},
+            "matcher": {"name": "matchers.lightglue", "input_dim": 128,
+                        "add_scale_ori": False, "n_layers": 6, "filter_threshold": 0.1,
+                        "checkpointed": False, "save_layer_outputs": False},
+            "ground_truth": {"name": None}, "run_gt_in_forward": False}
+
+
+_GLUESTICK_CARD = {  # gluefactory_tpu/configs/superpoint+lsd+gluestick.yaml
+    "name": "two_view_pipeline",
+    "extractor": {"name": "lines.wireframe",
+                  "point_extractor": {"name": "extractors.superpoint",
+                                      "max_num_keypoints": 1000, "detection_threshold": 0.0,
+                                      "dense_outputs": True},
+                  "line_extractor": {"name": "lines.lsd", "max_num_lines": 250,
+                                     "min_length": 15},
+                  "nms_radius": 3.0},
+    "matcher": {"name": "matchers.gluestick", "filter_threshold": 0.2},
+    # sfm_trajectory's --conf merges these over a card
+    "ground_truth": {"name": None}, "run_gt_in_forward": False,
+}
+
+# the committed runs outputs/results/trajectory/<name>: each run's model card and blob
+TRAJECTORY_CONFS = {
+    "sift_lg": {"model": trajectory_sift_lg_card(),
+                "checkpoint": "weights/lg_sift_stage1.f16.msgpack"},
+    "sift_lg_stage2": {"model": trajectory_sift_lg_card(),
+                       "checkpoint": "weights/lg_sift_stage2.f16.msgpack"},
+    "gluestick": {"model": _GLUESTICK_CARD,
+                  "checkpoint": "weights/gluestick_tpu_stage0.f16.msgpack"},
+}
+
+
+def trajectory_conf(name: str) -> dict:
+    """``{"model", "checkpoint"}`` of the trajectory run ``name``, a key of
+    ``TRAJECTORY_CONFS``."""
+    return copy.deepcopy(TRAJECTORY_CONFS[name])

@@ -165,3 +165,46 @@ def test_tiny_training_step_on_the_card(device):
     scalars = trainer.step(0)
     assert A.launches == {"attention_rotary": 4, "attention": 4}
     assert scalars["skipped"] == 0.0 and scalars["grad_norm"] > 0
+
+
+def test_bundle_adjust_graph_matches_eager_loop(device):
+    """The BA's replayed CUDA graph of one LM iteration against the eager
+    loop of the same iterations on the card, in float64 on a small arc of 4
+    cameras around 60 points: the same steps, costs within 1e-9 of the
+    largest, poses within 1e-9."""
+    from gluefactory_torch.geometry.utils import so3exp_map
+    from gluefactory_torch.geometry.wrappers import Camera, Pose
+    from gluefactory_torch.sfm.ba import BAProblem, _observed_cameras, bundle_adjust, lm_step
+
+    g = torch.Generator().manual_seed(0)
+    M, P = 4, 60
+    points = torch.rand(P, 3, generator=g, dtype=torch.float64) * 2 - 1
+    angles = torch.linspace(-0.3, 0.3, M, dtype=torch.float64)
+    R = so3exp_map(torch.stack([torch.zeros(M), angles, torch.zeros(M)], -1).double())
+    t = torch.tensor([0.0, 0.0, 5.0], dtype=torch.float64).expand(M, 3).clone()
+    cams = Camera.from_fc([[640.0, 480.0]] * M, [[500.0, 500.0]] * M, [[320.0, 240.0]] * M)
+    cams = cams.to(dtype=torch.float64)
+    obs_cam = torch.arange(M).repeat_interleave(P)
+    obs_pt = torch.arange(P).repeat(M)
+    uv, valid = cams.cam2image(Pose(R, t).transform(points[None].expand(M, P, 3)))
+    uv = uv.reshape(-1, 2) + 0.5 * torch.randn(M * P, 2, generator=g, dtype=torch.float64)
+    fixed = torch.zeros(M, dtype=torch.bool)
+    fixed[0] = True
+    noisy = Pose(R, t).retract_left(0.01 * torch.randn(M, 6, generator=g, dtype=torch.float64))
+    problem = BAProblem(noisy, cams, points + 0.05 * torch.randn(P, 3, generator=g,
+                                                                   dtype=torch.float64),
+                        obs_cam, obs_pt, uv, valid.reshape(-1), fixed).to(device)
+    poses, _, info = bundle_adjust(problem, num_iters=15, huber_delta=1.0, trim_th=20.0)
+    e_poses, e_points, lam = problem.poses, problem.points, torch.tensor(
+        1e-3, dtype=torch.float64, device=device)
+    costs, accepted = [], []
+    for _ in range(15):
+        e_poses, e_points, lam, cost, accept = lm_step(problem, e_poses, e_points, lam, 1.0,
+                                                       20.0, _observed_cameras(problem))
+        costs.append(cost)
+        accepted.append(accept)
+    assert torch.equal(info["accepted"], torch.stack(accepted))
+    costs = torch.stack(costs)
+    assert (info["costs"] - costs).abs().max() <= 1e-9 * costs.abs().max()
+    assert (poses.R - e_poses.R).abs().max() <= 1e-9 and (poses.t - e_poses.t).abs().max() <= 1e-9
+    assert info["costs"][-1] < info["costs"][0]

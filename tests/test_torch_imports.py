@@ -18,11 +18,13 @@ sys.path.insert(0, {root!r})
 import importlib, pkgutil
 import numpy as np
 import torch
+torch.set_num_threads(2)  # beside the suite's workers: threads that wait on each other
 import chip_smoke
 import chip_smoke_gluestick
 import chip_smoke_lines
 import chip_smoke_jpldd
 import chip_smoke_loftr
+import chip_smoke_sfm
 import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):
@@ -244,6 +246,27 @@ lconf["model"].update(initial_dim=8, block_dims=[8, 8, 16], fine_dim=8, heads=2)
 with tempfile.TemporaryDirectory() as tmp:
     _, history = training(lconf, Path(tmp) / "loftr", steps=1, device="cpu")
 assert history[0]["skipped"] == 0.0 and np.isfinite(history[0]["loss/fine_l2"]), history
+# the seventeenth slice: run_sfm on a tiny chain of views, and a trajectory scene
+from gluefactory_torch.geometry.wrappers import Camera
+from gluefactory_torch.scripts.sfm_trajectory import render_trajectory_scene, run_scene
+from gluefactory_torch.sfm import run_sfm
+
+rng = np.random.default_rng(0)
+X = np.c_[rng.uniform(-1, 1, (40, 2)), rng.uniform(4, 6, 40)]
+uv = np.stack([(X + [0.2 * v, 0.0, 0.0])[:, :2] / X[:, 2:] * 100 + [80, 60] for v in range(3)])
+cams = Camera.from_fc([[160.0, 120.0]] * 3, [[100.0, 100.0]] * 3, [[80.0, 60.0]] * 3)
+sfm = run_sfm(uv.astype(np.float32), np.ones((3, 40), bool),
+              {{(0, 1): np.arange(40), (1, 2): np.arange(40)}}, cams, num_hypotheses=32,
+              ba_iters=3, device="cpu")
+assert sfm["points"].shape == (40, 3) and sfm["ba_info"]["costs"].shape == (3,)
+sift = build_model("two_view_pipeline", {{
+    "extractor": {{"name": "extractors.sift", "max_num_keypoints": 128}},
+    "matcher": {{"name": "matchers.nearest_neighbor_matcher", "mutual_check": True}}}},
+    device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    render_trajectory_scene(Path(tmp) / "scene", np.random.default_rng(0), (160, 120), n_views=3)
+    res = run_scene(Path(tmp) / "scene", sift, "cpu")
+    assert res["n_matches_mean"] > 10 and res["ba_cost_last"] <= res["ba_cost_first"], res
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -9,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
 RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "chip_smoke_lines.py",
-                 "chip_smoke_jpldd.py", "chip_smoke_loftr.py",
+                 "chip_smoke_jpldd.py", "chip_smoke_loftr.py", "chip_smoke_sfm.py",
                  "weights/loftr_tpu_stage0.f16.msgpack", "weights/loftr_tpu_stage0b.f16.msgpack",
                  "weights/jpldd_tpu_stage0.f16.msgpack",
                  "weights/jpldd_tpu_stage1_desc.f16.msgpack",
@@ -81,7 +81,7 @@ def _chip_recipes() -> list[str]:
     """The recipes of gluefactory_torch.recipes that chip_smoke.py runs (its
     GlueStick phases from chip_smoke_gluestick.py, its line benchmarks from
     chip_smoke_lines.py, JPLDD from chip_smoke_jpldd.py, LoFTR from
-    chip_smoke_loftr.py)."""
+    chip_smoke_loftr.py, the trajectory benchmark from chip_smoke_sfm.py)."""
     import re
 
     from gluefactory_torch import recipes
@@ -90,7 +90,8 @@ def _chip_recipes() -> list[str]:
                                                           "chip_smoke_gluestick.py",
                                                           "chip_smoke_lines.py",
                                                           "chip_smoke_jpldd.py",
-                                                          "chip_smoke_loftr.py"))
+                                                          "chip_smoke_loftr.py",
+                                                          "chip_smoke_sfm.py"))
     return sorted({name for name in re.findall(r"\b(\w+_conf)\(\)", text)
                    if callable(getattr(recipes, name, None))})
 
@@ -137,4 +138,15 @@ def test_loftr_confs_read_blobs_the_gpu_machine_gets(name, tracked):
     from gluefactory_torch.recipes import hpatches_loftr_conf
 
     path = hpatches_loftr_conf(name)["checkpoint"]
+    assert path in RUNTIME_FILES and path in tracked, f"{name}: {path}"
+
+
+@pytest.mark.parametrize("name", sorted(__import__("gluefactory_torch.recipes",
+                                                   fromlist=["TRAJECTORY_CONFS"]).TRAJECTORY_CONFS))
+def test_trajectory_confs_read_blobs_the_gpu_machine_gets(name, tracked):
+    """Each trajectory run (phase 23 runs the three) names a blob that is
+    tracked and sent to the GPU machine."""
+    from gluefactory_torch.recipes import trajectory_conf
+
+    path = trajectory_conf(name)["checkpoint"]
     assert path in RUNTIME_FILES and path in tracked, f"{name}: {path}"

@@ -175,6 +175,12 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero:
      GlueStick through run_sfm (1024 hypotheses, 40 BA iterations), the card's medians
      over its RANSAC seeds 0-2 held to the JAX package's band over seeds 0-9, timed by
      stage; (c) K1/K2 launches, kernel against plain path; (d) its time.
+ 24. ALIKED at full width from a seeded initialisation (chip_smoke_aliked.py; phase 3
+     also holds K1/K2 at its 1x4x2048x64): (a) aliked-n16, aliked-n32 (2048 keypoints)
+     and the official graph, card against CPU; (b) aliked+lightglue on famA's first 8
+     sequences, 18 + 18 launches a pair, kernel against plain; (c) aliked+nn and
+     aliked_official_compat, NN matches card against CPU; (d)
+     aliked+lightglue_homography (batch 32, 640x640): step 0, 3 steps, a --restore.
 Phase 9 also benchmarks its stage-5 run through the benchmark CLI's conf and
 load_model, by the run's name and by its checkpoint_best.ckpt. The sets of
 phases 8, 10, 17 and 23 are rendered on the host in the background from phase 4
@@ -3469,6 +3475,9 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     results = check_kernels(device)
+    from chip_smoke_aliked import check_aliked, check_kernels_2048
+
+    check_kernels_2048(device, results)  # aliked+lightglue's 1x4x2048x64
 
     from chip_smoke_sfm import check_sfm, render_trajectory_set
 
@@ -3590,6 +3599,10 @@ def main() -> int:
             "(SIFT+LightGlue, GlueStick; triangulation, Schur-complement BA, pose graph)")
         sfm_launches = check_sfm(device, Path(tmp))
 
+        log("phase 24: ALIKED at full width (aliked-n16/n32, the official graph; HPatches with "
+            "LightGlue and NN; aliked+lightglue_homography training)")
+        aliked_launches = check_aliked(device, Path(tmp), Path(tmp) / "gate")
+
     by_path = {
         "attention_rotary": {"flagship": launches["attention_rotary"],
                              "training": train_launches["attention_rotary"],
@@ -3606,7 +3619,7 @@ def main() -> int:
                                 for path, counts in eth3d_launches.items()},
                              "loftr": loftr_launches["attention_rotary"],
                              **{path: counts["attention_rotary"]
-                                for path, counts in sfm_launches.items()}},
+                                for path, counts in {**sfm_launches, **aliked_launches}.items()}},
         "attention": {"flagship": launches["attention"],
                       "probe": verdict["attention"]["launches"]["attention"],
                       "training": train_launches["attention"],
@@ -3624,7 +3637,8 @@ def main() -> int:
                          for path, counts in eth3d_launches.items()},
                       **gs_launches, **gs_train_launches, **lines_launches,
                       "loftr": loftr_launches["attention"],
-                      **{path: counts["attention"] for path, counts in sfm_launches.items()}},
+                      **{path: counts["attention"]
+                         for path, counts in {**sfm_launches, **aliked_launches}.items()}},
         "add": {"probe": verdict["tiny"]["launches"]["add"]},
     }
     for r in results:

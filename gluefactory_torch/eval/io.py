@@ -9,12 +9,14 @@ the ``yaml`` package is installed (the GPU machine has none)."""
 from __future__ import annotations
 
 import argparse
+import copy
 from pathlib import Path
 
 import torch
 
 from ..core.config import dotlist_to_dict, load_conf, merge
 from ..models import build_model
+from ..recipes import ALIKED_CONFS
 from ..settings import ROOT_PATH
 from ..utils.experiments import (
     checkpoint_sources,
@@ -39,12 +41,20 @@ def parse_config_path(name_or_path: str) -> Path:
                             f"{sorted(c.stem for c in CONFIGS_DIR.glob('*.yaml'))}")
 
 
+def read_named_conf(name_or_path: str) -> dict:
+    """The conf ``--conf`` names: a model card of ``recipes.ALIKED_CONFS`` by
+    its YAML's name (read without the ``yaml`` package), else the file of
+    ``parse_config_path``."""
+    if name_or_path in ALIKED_CONFS:
+        return copy.deepcopy(ALIKED_CONFS[name_or_path])
+    return load_conf(parse_config_path(name_or_path))
+
+
 def parse_eval_args(benchmark: str, args, default_conf: dict, named_conf: dict) -> dict:
-    """Defaults < named conf (``args.conf`` through ``parse_config_path``,
+    """Defaults < named conf (``args.conf`` through ``read_named_conf``,
     else ``named_conf``; a section named after the benchmark is merged over
     the rest) < dotlist < ``args.checkpoint``."""
-    named = (load_conf(parse_config_path(args.conf)) if getattr(args, "conf", None)
-             else named_conf)
+    named = read_named_conf(args.conf) if getattr(args, "conf", None) else named_conf
     named = merge(named, named.get(benchmark))
     conf = merge(default_conf, named)
     conf = merge(conf, dotlist_to_dict(getattr(args, "dotlist", None) or []))

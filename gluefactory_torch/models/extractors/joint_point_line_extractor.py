@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ...ops.nms import select_top_k_keypoints, simple_nms, soft_argmax_refinement
 from ..base_model import BaseModel, make_submodel
 from ..utils.desc_losses import mutual_detected_matches, nll_desc_loss
-from .aliked import SDDH, Conv, ConvBlock, ResBlock
+from .aliked import SDDH, ALIKEDTrunk, Conv
 
 
 def optax_sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -45,7 +45,7 @@ def optax_sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tenso
     return logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
 
 
-class JPLDD(BaseModel):
+class JPLDD(BaseModel, ALIKEDTrunk):
     default_conf: ClassVar[dict] = {
         "channels": [16, 32, 64, 128],
         "dim": 128,
@@ -87,15 +87,7 @@ class JPLDD(BaseModel):
         c1, c2, c3, c4 = conf["channels"]
         dim = int(conf["dim"])
         # the JAX trunk infers its input width at init; a blob fixes it at 3
-        c_in = int(conf["input_channels"] or 3)
-        self.block1 = ConvBlock(c_in, c1)
-        self.block2 = ConvBlock(c1, c2, stride=2)
-        self.block3 = ResBlock(c2, c3, deformable=True)
-        self.block4 = ResBlock(c3, c4, deformable=True)
-        self.agg_conv1 = Conv(c1, dim // 4, 1)
-        self.agg_conv2 = Conv(c2, dim // 4, 1)
-        self.agg_conv3 = Conv(c3, dim // 4, 1)
-        self.agg_conv4 = Conv(c4, dim // 4, 1)
+        self._trunk(int(conf["input_channels"] or 3), c1, c2, c3, c4, dim)
         feat = 4 * (dim // 4)
         self.kp1, self.kp2, self.kp3 = Conv(feat, 8, 1), Conv(8, 4, 3), Conv(4, 1, 3)
         self.df1, self.df2, self.df3 = Conv(feat, 16, 3), Conv(16, 8, 3), Conv(8, 1, 3)
@@ -112,17 +104,7 @@ class JPLDD(BaseModel):
             if image.shape[-1] != 1:
                 image = image.mean(dim=-1, keepdim=True)
             image = image.expand(*image.shape[:-1], int(ic))
-        x1 = self.block1(image.permute(0, 3, 1, 2))
-        x2 = self.block2(x1)
-        x3 = self.block3(F.avg_pool2d(x2, 2))
-        x4 = self.block4(F.avg_pool2d(x3, 2))
-        size = tuple(image.shape[1:3])
-
-        def up(x):
-            return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
-
-        return F.selu(torch.cat([self.agg_conv1(x1), up(self.agg_conv2(x2)),
-                                 up(self.agg_conv3(x3)), up(self.agg_conv4(x4))], dim=1))
+        return self.features(image)
 
     def denormalize_df(self, df_norm: torch.Tensor) -> torch.Tensor:
         """Normalised [0, 1] (1 on a line) -> pixel distances."""

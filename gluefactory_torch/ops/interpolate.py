@@ -38,6 +38,29 @@ def bilinear_sample(fmap: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return top * (1 - fy) + bot * fy
 
 
+def bilinear_sample_zeros(fmap: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """``bilinear_sample`` with ``grid_sample``'s ``padding_mode='zeros'``:
+    each of the four taps that falls outside the map contributes zero
+    (torchvision's deformable convolution samples so). No clamping of the
+    points: fmap (B, H, W, C), points (B, N, 2) as (x, y) -> (B, N, C)."""
+    b, h, w, c = fmap.shape
+    x, y = points[..., 0], points[..., 1]
+    x0, y0 = x.floor().long(), y.floor().long()
+    fx = (x - x0.to(x.dtype))[..., None]
+    fy = (y - y0.to(y.dtype))[..., None]
+    flat = fmap.reshape(b * h * w, c)
+    base = (torch.arange(b, device=fmap.device) * (h * w)).reshape(b, *[1] * (points.ndim - 2))
+    out = 0.0
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            yy, xx = y0 + dy, x0 + dx
+            inside = ((xx >= 0) & (xx < w) & (yy >= 0) & (yy < h))[..., None]
+            index = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+            tap = flat.index_select(0, index.reshape(-1)).reshape(*index.shape, c)
+            out = out + tap * inside * wy * wx
+    return out
+
+
 def sample_descriptors(descriptor_map: torch.Tensor, keypoints: torch.Tensor,
                        stride: int = 8, mode: str = "center") -> torch.Tensor:
     """L2-normalized descriptors at full-resolution keypoints (B, N, 2) from a

@@ -1332,3 +1332,55 @@ def trajectory_conf(name: str) -> dict:
     """``{"model", "checkpoint"}`` of the trajectory run ``name``, a key of
     ``TRAJECTORY_CONFS``."""
     return copy.deepcopy(TRAJECTORY_CONFS[name])
+
+
+# --- ALIKED ---------------------------------------------------------------------------
+
+_ALIKED_N16 = {"name": "extractors.aliked", "model_name": "aliked-n16",
+               "max_num_keypoints": 2048}
+_NN = {"name": "matchers.nearest_neighbor_matcher"}
+
+# gluefactory_tpu/configs/<name>.yaml, the model cards that the eval CLIs take by name
+# (eval.io.read_named_conf); no ALIKED weights are in the repository, so each runs from
+# its initialisation, and aliked_official_compat from torch_weight_converter's output
+ALIKED_CONFS = {
+    "aliked+lightglue": {"model": {
+        "name": "two_view_pipeline", "extractor": _ALIKED_N16,
+        "matcher": {"name": "matchers.lightglue", "input_dim": 128, "filter_threshold": 0.1,
+                    "save_layer_outputs": False, "checkpointed": False}}},
+    "aliked+nn": {"model": {"name": "two_view_pipeline", "extractor": _ALIKED_N16,
+                            "matcher": _NN}},
+    "aliked_official_compat": {"model": {
+        "name": "two_view_pipeline",
+        "extractor": {**_ALIKED_N16, "compat": True, "detection_threshold": 0.2,
+                      "nms_radius": 2, "trainable": False},
+        "matcher": _NN}},
+}
+
+
+def aliked_conf(name: str) -> dict:
+    """The ALIKED model card ``name`` of ``ALIKED_CONFS``."""
+    return copy.deepcopy(ALIKED_CONFS[name])
+
+
+def aliked_lightglue_homography_conf() -> dict:
+    """``aliked+lightglue_homography.yaml``: 9-layer LightGlue (checkpointed
+    layers) on a frozen ALIKED-n16 (512 keypoints, threshold 0) from their
+    initialisation, on the host homography dataset (synthetic scenes,
+    640-pixel views, the lg photometrics, 8 loader processes, batch 32)."""
+    return copy.deepcopy({
+        "data": {"name": "homographies", "synthetic": True, "image_size": 640,
+                 "train_batch_size": 32, "val_batch_size": 16, "num_workers": 8,
+                 "homography": {"difficulty": 0.7, "max_angle": 45.0},
+                 "photometric": {"name": "lg"}},
+        "model": {"name": "two_view_pipeline",
+                  "extractor": {"name": "extractors.aliked", "max_num_keypoints": 512,
+                                "detection_threshold": 0.0, "trainable": False},
+                  "matcher": {"name": "matchers.lightglue", "input_dim": 128,
+                              "filter_threshold": 0.1, "checkpointed": True},
+                  "ground_truth": {"name": "matchers.homography_matcher", "th_positive": 3.0,
+                                   "th_negative": 6.0},
+                  "run_gt_in_forward": True},
+        "train": {"seed": 0, "epochs": 40, "lr": 1.0e-4,
+                  "lr_schedule": {"type": "exp", "start": 20000, "exp_div_10": 200000},
+                  "log_every_iter": 100, "eval_every_iter": 1000, "best_key": "loss/total"}})

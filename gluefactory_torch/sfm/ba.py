@@ -7,7 +7,11 @@ reprojection errors, the intrinsics held fixed:
   - the observations are flat arrays (obs_cam, obs_pt, obs_uv, obs_valid);
     every per-observation quantity (residual, Jacobians, Hessian blocks) is
     one batched product, and the blocks are summed per camera, per point and
-    per (point, camera) by ``index_add_``;
+    per (point, camera): by ``index_add_`` on the CPU, and on the card in a
+    fixed order through tables of each group's observations
+    (``_summation_tables``), since the card's ``index_add_`` sums in the
+    order its atomic adds land and the BA, chaotic where the trimmed cost
+    offers a runaway, would then end differently from run to run;
   - the reduced camera system S = U - W V^-1 W^T is assembled densely over
     the few cameras and solved; the point block V is block-diagonal 3x3 and
     inverted in one batch, and the points follow by back-substitution.
@@ -105,10 +109,43 @@ def _residuals_and_jacobians(problem: BAProblem, poses: Pose, points: torch.Tens
     return r, w, J_cam, J_pt, _robust_cost(rn, valid, huber_delta, trim_th)
 
 
-def _block_aggregates(problem: BAProblem, r, w, J_cam, J_pt):
+def _summation_table(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, K) the observations of each of the ``n`` keys in ascending order,
+    padded with O (a row of zeros in ``_summed``); K the most any key has.
+    Reads K on the host: built once a problem, before the loop."""
+    O = keys.shape[0]
+    order = torch.argsort(keys, stable=True)
+    counts = torch.bincount(keys, minlength=n)
+    sorted_keys = keys[order]
+    rank = torch.arange(O, device=keys.device) - (counts.cumsum(0) - counts)[sorted_keys]
+    table = torch.full((n, max(int(counts.max()) if O else 0, 1)), O, dtype=torch.long,
+                       device=keys.device)
+    table[sorted_keys, rank] = order
+    return table
+
+
+def _summation_tables(problem: BAProblem) -> tuple:
+    """The tables of the observations by camera, by point and by (point,
+    camera) that ``_block_aggregates`` sums in a fixed order."""
+    M, P = problem.num_cams, problem.num_points
+    cam, pt = problem.obs_cam, problem.obs_pt
+    return (_summation_table(cam, M), _summation_table(pt, P),
+            _summation_table(pt * M + cam, P * M))
+
+
+def _summed(x: torch.Tensor, index: torch.Tensor, n: int, table=None) -> torch.Tensor:
+    """The rows of x (O, ...) summed by ``index`` into (n, ...): by
+    ``index_add_``, or in ``table``'s fixed order."""
+    if table is None:
+        return x.new_zeros(n, *x.shape[1:]).index_add_(0, index, x)
+    return torch.cat([x, x.new_zeros(1, *x.shape[1:])])[table].sum(1)
+
+
+def _block_aggregates(problem: BAProblem, r, w, J_cam, J_pt, tables=(None, None, None)):
     """The normal equations' blocks: U (M, 6, 6), V (P, 3, 3), bc (M, 6),
     bp (P, 3) and Apc (P, M, 6, 3), the sum of W_o over the observations of
-    point p by camera c."""
+    point p by camera c; summed in the fixed order of ``tables``
+    (``_summation_tables``) where they are given."""
     M, P = problem.num_cams, problem.num_points
     Wr = w[:, None] * r
     wJ_cam = w[:, None, None] * J_cam
@@ -118,11 +155,12 @@ def _block_aggregates(problem: BAProblem, r, w, J_cam, J_pt):
     bc_o = -(J_cam.transpose(1, 2) @ Wr[..., None])[..., 0]  # (O, 6)
     bp_o = -(J_pt.transpose(1, 2) @ Wr[..., None])[..., 0]  # (O, 3)
     cam, pt = problem.obs_cam, problem.obs_pt
-    U = r.new_zeros(M, 6, 6).index_add_(0, cam, U_o)
-    V = r.new_zeros(P, 3, 3).index_add_(0, pt, V_o)
-    bc = r.new_zeros(M, 6).index_add_(0, cam, bc_o)
-    bp = r.new_zeros(P, 3).index_add_(0, pt, bp_o)
-    Apc = r.new_zeros(P * M, 6, 3).index_add_(0, pt * M + cam, W_o).view(P, M, 6, 3)
+    by_cam, by_pt, by_pair = tables
+    U = _summed(U_o, cam, M, by_cam)
+    V = _summed(V_o, pt, P, by_pt)
+    bc = _summed(bc_o, cam, M, by_cam)
+    bp = _summed(bp_o, pt, P, by_pt)
+    Apc = _summed(W_o, pt * M + cam, P * M, by_pair).view(P, M, 6, 3)
     return U, V, bc, bp, Apc
 
 
@@ -167,13 +205,16 @@ def _cost_only(problem: BAProblem, poses: Pose, points: torch.Tensor, huber_delt
 
 
 def lm_step(problem: BAProblem, poses: Pose, points: torch.Tensor, lam: torch.Tensor,
-            huber_delta: float, trim_th: float | None = None, cam_o: Camera | None = None):
+            huber_delta: float, trim_th: float | None = None, cam_o: Camera | None = None,
+            tables=(None, None, None)):
     """One LM iteration: (poses, points, lambda, the cost after it, whether
-    the step was taken), all on the device."""
+    the step was taken), all on the device; the blocks summed in the fixed
+    order of ``tables`` (``_summation_tables``) where they are given."""
     cam_o = _observed_cameras(problem) if cam_o is None else cam_o
     r, w, J_cam, J_pt, cost = _residuals_and_jacobians(problem, poses, points, huber_delta,
                                                        trim_th, cam_o)
-    dxc, dxp = _schur_solve(problem, *_block_aggregates(problem, r, w, J_cam, J_pt), lam)
+    dxc, dxp = _schur_solve(problem, *_block_aggregates(problem, r, w, J_cam, J_pt, tables),
+                            lam)
     new_poses = poses.retract_left(dxc)
     new_points = points + dxp
     new_cost = _cost_only(problem, new_poses, new_points, huber_delta, trim_th, cam_o)
@@ -191,8 +232,10 @@ def bundle_adjust(problem: BAProblem, num_iters: int = 20, huber_delta: float = 
     """LM bundle adjustment on the problem's device: (poses, points, info),
     info's ``costs`` (num_iters,) the cost after each iteration, ``accepted``
     (num_iters,) whether its step was taken, and ``final_lambda``. On the
-    card one iteration is captured as a CUDA graph and replayed: eagerly the
-    host launches ~350 kernels an iteration for ~0.7 ms of device work."""
+    card one iteration is captured as a CUDA graph and replayed (eagerly the
+    host launches ~350 kernels an iteration for ~0.7 ms of device work), and
+    its blocks are summed in a fixed order, so that a problem's result
+    repeats from run to run."""
     cam_o = _observed_cameras(problem)
     lam = torch.tensor(init_lambda, dtype=problem.points.dtype, device=problem.points.device)
     if problem.points.is_cuda:
@@ -214,6 +257,7 @@ def _bundle_adjust_graphed(problem: BAProblem, cam_o: Camera, lam: torch.Tensor,
     lambda) and the costs live in static tensors that one captured
     iteration reads and writes, replayed ``num_iters`` times."""
     R, t, points = problem.poses.R.clone(), problem.poses.t.clone(), problem.points.clone()
+    tables = _summation_tables(problem)
     state = (R, t, points, lam)
     start = tuple(x.clone() for x in state)
     costs = points.new_zeros(num_iters)
@@ -222,7 +266,7 @@ def _bundle_adjust_graphed(problem: BAProblem, cam_o: Camera, lam: torch.Tensor,
 
     def step():
         poses, new_points, new_lam, cost, accept = lm_step(
-            problem, Pose(R, t), points, lam, huber_delta, trim_th, cam_o)
+            problem, Pose(R, t), points, lam, huber_delta, trim_th, cam_o, tables)
         for old, new in zip(state, (poses.R, poses.t, new_points, new_lam)):
             old.copy_(new)
         costs.index_copy_(0, it, cost[None])

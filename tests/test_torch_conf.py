@@ -23,7 +23,8 @@ PORTED = ["extractors.superpoint", "matchers.lightglue", "matchers.homography_ma
           "matchers.superglue", "matchers.nearest_neighbor_matcher", "matchers.adalam",
           "matchers.depth_matcher", "matchers.oracle_matcher", "lines.lsd", "lines.wireframe",
           "matchers.gluestick", "lines.sold2", "extractors.joint_point_line_extractor",
-          "lines.pold2_extractor", "matchers.nn_point_line", "matchers.loftr"]
+          "lines.pold2_extractor", "matchers.nn_point_line", "matchers.loftr",
+          "extractors.aliked", "extractors.aliked_light"]
 
 
 def _leaves(conf: dict, prefix: str = "") -> dict:

@@ -167,6 +167,39 @@ def test_tiny_training_step_on_the_card(device):
     assert scalars["skipped"] == 0.0 and scalars["grad_norm"] > 0
 
 
+def test_bundle_adjust_repeats_on_card(device):
+    """The card's float32 BA, its blocks summed in a fixed order, twice on
+    one problem of 6 cameras around 400 points: the same costs, poses and
+    points bit for bit (``index_add_`` sums in the order its atomic adds
+    land, and a chaotic BA then ends differently from run to run)."""
+    from gluefactory_torch.geometry.utils import so3exp_map
+    from gluefactory_torch.geometry.wrappers import Camera, Pose
+    from gluefactory_torch.sfm.ba import BAProblem, bundle_adjust
+
+    g = torch.Generator().manual_seed(1)
+    M, P = 6, 400
+    points = torch.rand(P, 3, generator=g) * 2 - 1
+    angles = torch.linspace(-0.4, 0.4, M)
+    R = so3exp_map(torch.stack([torch.zeros(M), angles, torch.zeros(M)], -1))
+    t = torch.tensor([0.0, 0.0, 5.0]).expand(M, 3).clone()
+    cams = Camera.from_fc([[640.0, 480.0]] * M, [[500.0, 500.0]] * M, [[320.0, 240.0]] * M)
+    obs_cam = torch.arange(M).repeat_interleave(P)
+    obs_pt = torch.arange(P).repeat(M)
+    uv, valid = cams.cam2image(Pose(R, t).transform(points[None].expand(M, P, 3)))
+    uv = uv.reshape(-1, 2) + 0.5 * torch.randn(M * P, 2, generator=g)
+    fixed = torch.zeros(M, dtype=torch.bool)
+    fixed[0] = True
+    noisy = Pose(R, t).retract_left(0.01 * torch.randn(M, 6, generator=g))
+    problem = BAProblem(noisy, cams, points + 0.05 * torch.randn(P, 3, generator=g), obs_cam,
+                        obs_pt, uv, valid.reshape(-1), fixed).to(device)
+    runs = [bundle_adjust(problem, num_iters=40, huber_delta=1.0, trim_th=20.0)
+            for _ in range(2)]
+    (p0, x0, i0), (p1, x1, i1) = runs
+    assert torch.equal(i0["costs"], i1["costs"]) and torch.equal(i0["accepted"], i1["accepted"])
+    assert torch.equal(p0.R, p1.R) and torch.equal(p0.t, p1.t) and torch.equal(x0, x1)
+    assert i0["costs"][-1] < i0["costs"][0]
+
+
 def test_bundle_adjust_graph_matches_eager_loop(device):
     """The BA's replayed CUDA graph of one LM iteration against the eager
     loop of the same iterations on the card, in float64 on a small arc of 4

@@ -417,20 +417,21 @@ def test_remap_loads_the_blobs_extractor():
     assert len(ours) == len(flat) and ours == X.remap_keys(flat, JAX_REMAP)
 
 
-def test_config_sweep_reads_45_0_12():
+def test_config_sweep_reads_49_0_8():
     """Every GlueStick training YAML builds, model and dataset, and so do the
     three line cards of the line benchmarks, JPLDD's six YAMLs, SOLD2's
-    training config and LoFTR's four; the ALIKED model itself is not ported
-    (its blocks are, for JPLDD)."""
+    training config, LoFTR's four and ALIKED's four; the 8 refused name a
+    model the port lacks (DISK, superpoint_open, DeepLSD, KeyNet, XFeat)."""
     groups = sweep(CONFIGS_DIR)
-    assert {k: len(v) for k, v in groups.items()} == {"both": 45, "model_only": 0,
-                                                       "neither": 12}
+    assert {k: len(v) for k, v in groups.items()} == {"both": 49, "model_only": 0,
+                                                       "neither": 8}
     built = {name for name, _ in groups["both"]}
     assert {f"{name}.yaml" for name in RECIPES.values()} <= built
     assert {"lsd+lbd.yaml", "elsed_lines_eval.yaml", "sold2+wunsch.yaml"} <= built
     assert {f"{name}.yaml" for name in (
         "sold2_train_pairs", "jpldd_eval", "jpldd_desc_stage", "jpldd_desc_stage_structured",
         "jpldd_ondevice", "jpldd_ondevice_structured", "jpldd_train_synthetic", "loftr",
-        "loftr_ondevice", "loftr_homography", "loftr_finetune_fine")} <= built
+        "loftr_ondevice", "loftr_homography", "loftr_finetune_fine", "aliked+lightglue",
+        "aliked+lightglue_homography", "aliked+nn", "aliked_official_compat")} <= built
     refused = dict(groups["neither"])
-    assert "'extractors.aliked'" in refused["aliked+nn.yaml"]
+    assert "'extractors.disk'" in refused["disk+nn.yaml"]

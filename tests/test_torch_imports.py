@@ -25,6 +25,7 @@ import chip_smoke_lines
 import chip_smoke_jpldd
 import chip_smoke_loftr
 import chip_smoke_sfm
+import chip_smoke_aliked
 import attention_variants
 import gluefactory_torch
 for mod in pkgutil.walk_packages(gluefactory_torch.__path__, "gluefactory_torch."):

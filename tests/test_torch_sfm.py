@@ -281,6 +281,53 @@ def test_lm_step_matches_jax():
     assert not dxc[:2].any()  # the gauge
 
 
+def test_fixed_order_sums_match_index_add():
+    """The card's fixed-order block sums (``_summation_tables``) against
+    ``index_add_`` on the outlier scene with 40 observations repeated (a
+    point seen twice by one camera), in float64: every block within 1e-12
+    of its largest; 20 LM steps with costs within 1e-12, taking the same
+    steps while a step lowers the cost by more than 1e-9 of it (the first
+    ~10; past that floor either side takes or rejects steps that change the
+    cost by rounding); a table lists each observation once, in ascending
+    order."""
+    _, (port, _) = _outlier_problem()
+    extra = torch.arange(0, 400, 10)
+    port = BAProblem(port.poses, port.cameras, port.points,
+                     torch.cat([port.obs_cam, port.obs_cam[extra]]),
+                     torch.cat([port.obs_pt, port.obs_pt[extra]]),
+                     torch.cat([port.obs_uv, port.obs_uv[extra] + 0.7]),
+                     torch.cat([port.obs_valid, port.obs_valid[extra]]),
+                     port.fixed_cams).to(dtype=torch.float64)
+    tables = B._summation_tables(port)
+    assert tables[2].shape[1] == 2
+    for table in tables:
+        listed = table[table < len(port.obs_cam)]
+        assert torch.equal(listed.sort().values, torch.arange(len(port.obs_cam)))
+        rows = torch.where(table < len(port.obs_cam), table, -1)
+        assert (rows[:, 1:] > rows[:, :-1]).logical_or(rows[:, 1:] == -1).all()
+    r, w, J_cam, J_pt, _ = B._residuals_and_jacobians(port, port.poses, port.points, HUBER,
+                                                      TRIM)
+    plain = B._block_aggregates(port, r, w, J_cam, J_pt)
+    fixed = B._block_aggregates(port, r, w, J_cam, J_pt, tables)
+    for name, got, ref in zip(("U", "V", "bc", "bp", "Apc"), fixed, plain):
+        _close(got, ref, 1e-12, name)
+    lam = torch.tensor(1e-3, dtype=torch.float64)
+    state = {"index_add_": (port.poses, port.points, lam), "fixed": (port.poses, port.points, lam)}
+    before = float(B._cost_only(port, port.poses, port.points, HUBER, TRIM))
+    for _ in range(20):
+        out = {}
+        for key, arg in (("index_add_", (None, None, None)), ("fixed", tables)):
+            poses, points, lam_k, cost, accept = B.lm_step(port, *state[key], HUBER, TRIM,
+                                                           tables=arg)
+            state[key] = (poses, points, lam_k)
+            out[key] = (float(cost), bool(accept))
+        cost = out["index_add_"][0]
+        if before - cost > 1e-9 * cost:  # beyond the floor, rounding takes or rejects a step
+            assert out["fixed"][1] == out["index_add_"][1]
+        assert abs(out["fixed"][0] - cost) <= 1e-12 * cost
+        before = cost
+
+
 def _jax_accepts(costs, cost0):
     """JAX's accept decisions, from the costs it returns: a rejected step
     repeats the cost before it."""

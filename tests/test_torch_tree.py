@@ -10,6 +10,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_BASE = "75eb9210661add3b1244d8fe621252a999ce539e"  # last commit before the port
 RUNTIME_FILES = ["chip_smoke.py", "chip_smoke_gluestick.py", "chip_smoke_lines.py",
                  "chip_smoke_jpldd.py", "chip_smoke_loftr.py", "chip_smoke_sfm.py",
+                 "chip_smoke_aliked.py",
                  "weights/loftr_tpu_stage0.f16.msgpack", "weights/loftr_tpu_stage0b.f16.msgpack",
                  "weights/jpldd_tpu_stage0.f16.msgpack",
                  "weights/jpldd_tpu_stage1_desc.f16.msgpack",
